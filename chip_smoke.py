@@ -10,8 +10,13 @@ Phases (any failure ends the run with a non-zero exit, and no result):
 2. build: nvcc builds the CUDA kernels from limo_tpu_torch/csrc/;
 3. kernels: each kernel against its plain PyTorch version on the card, at
    the bench width (K=20, C=1, L=1536) and at a 2-camera ragged shape
-   (K=6, C=2, L=1000), depth on and off; timed with CUDA events beside the
-   plain version and the least time the card could take (bound);
+   (K=6, C=2, L=1000), depth on and off, and on 40 keyframe slots with the
+   keyframes in use in slots 28-39 (L=999); 20 launches of each kernel on
+   the same inputs bit-identical; the kernel's device time per launch (from
+   the torch.profiler trace, else CUDA graph replay: kernel_times.device_ms)
+   beside an empty kernel's on the same grid (the launch floor), the whole
+   wrapper, the plain version and the least time the card could take
+   (bound);
 4. main path: the trimmed windowed-BA solve at the bench width
    (``make_problem(20, 1536, 12, 800, float32, seed=1)``) run 10 times
    after one warm-up, with the launch counts of both kernels, the solve
@@ -19,7 +24,8 @@ Phases (any failure ends the run with a non-zero exit, and no result):
    package's f64 solve, 1612.640648) and bit-identical repeats checked,
    then one solve without lidar depth;
 5. where the time goes: one solve under torch.profiler (device time by
-   kernel, device idle share) and the host syncs of one solve.
+   kernel, the two kernels' own, device idle share) and the host syncs of
+   one solve.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. The profile table and a JSON record of
@@ -28,7 +34,6 @@ the run are written under chiprun_out/.
 
 import json
 import statistics
-import subprocess
 import sys
 import time
 import traceback
@@ -39,6 +44,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from kernel_times import SYMBOL, card_line, device_ms, events_ms
 from limo_tpu_torch.entry import kernel_check_windows, make_problem
 from limo_tpu_torch.solver import ba_core, cuda_assemble as ca
 from limo_tpu_torch.solver import solve_trimmed
@@ -61,6 +67,7 @@ REPLACES = {
     "assemble_obs": "limo_tpu/solver/pallas_assemble.py:325",
     "cost_obs": "limo_tpu/solver/pallas_assemble.py:122",
 }
+N_REPEAT = 20
 OUT = Path("chiprun_out")
 
 
@@ -73,34 +80,24 @@ def phase(name):
     print(f"\n== {name}", flush=True)
 
 
-def card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
-
-
-def events_ms(fn, n_batches, per_batch, warmup=3):
-    """Median over batches of the per-call device time of ``fn`` (CUDA
-    events around ``per_batch`` back-to-back calls)."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(n_batches):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(per_batch):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / per_batch)
-    return statistics.median(times)
+def check_repeats(name, ops, sizes):
+    """N_REPEAT wrapper calls on the same inputs; every output must equal
+    the first call's bit for bit (a counter that does not reset, or a
+    reduction that races, shows here)."""
+    fn = {"assemble_obs": ca.assemble_obs, "cost_obs": ca.cost_obs}[name]
+    runs = [fn(*ops, **sizes) for _ in range(N_REPEAT)]
+    torch.cuda.synchronize()
+    first = runs[0] if name == "assemble_obs" else (runs[0],)
+    for run in runs[1:]:
+        run = run if name == "assemble_obs" else (run,)
+        check(all(torch.equal(a, b) for a, b in zip(first, run)),
+              f"{name}: {N_REPEAT} launches on the same inputs differ")
 
 
 def bound(name, ops, outs, K, C):
-    """Least time (ms) for the work: each input read once, each output
-    written once, over the HBM rate; the f32 operations over the f32 rate."""
+    """Least time (ms) for the work: each input read once, each public
+    output written once (not the partials' scratch), over the HBM rate; the
+    f32 operations over the f32 rate."""
     L = ops[0].shape[1]
     nbytes = sum(t.numel() * t.element_size() for t in (*ops, *outs))
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -114,45 +111,59 @@ def check_kernels(device):
     per-kernel error and timing record at the bench width."""
     errs = {"assemble_obs": (0.0, 0.0), "cost_obs": (0.0, 0.0)}
     for name, (w, sel, rig, cfg) in kernel_check_windows(device):
-        case = ca.compare_with_plain(*ba_core._obs_kernel_args(w, sel, rig,
-                                                               cfg))
+        ops, sizes = ba_core._obs_kernel_args(w, sel, rig, cfg)
+        case = ca.compare_with_plain(ops, sizes)
         torch.cuda.synchronize()
         errs = {k: tuple(map(max, errs[k], case[k])) for k in errs}
+        for kernel in errs:
+            check_repeats(kernel, ops, sizes)
         print(f"{name}: both kernels agree with their plain versions; "
-              f"cost kernel == assembly kernel cost")
+              f"cost kernel == assembly kernel cost; {N_REPEAT} launches of "
+              f"each bit-identical")
 
     # timing at the bench width, depth on, in one call: the kernel alone
-    # (the wrapper's launch into outputs allocated once), the whole
-    # wrapper, and the plain version
+    # (the wrapper's launch into outputs allocated once), an empty kernel on
+    # the same grid, the whole wrapper, and the plain version
     w, sel, rig, cfg = make_problem(20, 1536, 12, 800, torch.float32, seed=1,
                                     device=device)
     ops, sizes = ba_core._obs_kernel_args(w, sel, rig, cfg)
     K, C, L = sizes["K"], sizes["C"], ops[0].shape[1]
+    lib = ca.build().lib
+
+    def noop():
+        check(lib.limo_noop(L, torch.cuda.current_stream().cuda_stream) == 0,
+              "empty kernel: launch failed")
+    floor_ms, floor_how = device_ms(noop, SYMBOL["noop"])
+    print(f"launch floor (empty kernel, {ca.n_blocks(L)} blocks of "
+          f"{ca.block_size()} threads): {floor_ms * 1e3:.3f} us ({floor_how})")
     wrapper = {"assemble_obs": lambda: ca.assemble_obs(*ops, **sizes),
                "cost_obs": lambda: ca.cost_obs(*ops, **sizes)}
     plain = {"assemble_obs": lambda: ca.assemble_obs_plain(*ops, **sizes),
              "cost_obs": lambda: ca.cost_obs_plain(*ops, **sizes)}
     records = {}
     for name in ("assemble_obs", "cost_obs"):
-        outs = ca.kernel_outputs(name, K, L, device)
-        launch = ca.launcher(name, ops, outs, **sizes)
+        outs, scratch = ca.kernel_outputs(name, K, L, ops[0].device)
+        launch = ca.launcher(name, ops, outs, scratch, **sizes)
         b_ms, b_by, nbytes = bound(name, ops, outs, K, C)
+        ms, how = device_ms(launch, SYMBOL[name])
         records[name] = {
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": REPLACES[name],
             "launches": None,               # filled from the main path
             "max_abs_err": errs[name][0], "max_rel_err": errs[name][1],
-            "ms": events_ms(launch, 11, 50),
+            "ms": ms, "ms_method": how, "floor_ms": floor_ms,
+            "floor_method": floor_how,
             "wrapper_ms": events_ms(wrapper[name], 11, 50),
             "plain_ms": events_ms(plain[name], 5, 10),
             "bound_ms": b_ms, "bound_by": b_by, "bound_bytes": nbytes,
             "library_ms": None,     # no single PyTorch call computes this
         }
         r = records[name]
-        print(f"{name}: {r['ms']:.4f} ms/launch (wrapper {r['wrapper_ms']:.4f}"
-              f", plain {r['plain_ms']:.4f}, bound {b_ms * 1e3:.3f} us by "
-              f"{b_by}); max |kernel - plain| {errs[name][0]:.3g} "
-              f"(relative {errs[name][1]:.3g})")
+        print(f"{name}: {ms * 1e3:.3f} us/launch on the device ({how}; "
+              f"floor {floor_ms * 1e3:.3f} us, bound {b_ms * 1e3:.3f} us by "
+              f"{b_by}); wrapper {r['wrapper_ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms (CUDA events); max |kernel - plain| "
+              f"{errs[name][0]:.3g} (relative {errs[name][1]:.3g})")
     return records
 
 
@@ -283,6 +294,10 @@ def where_time_goes(problem):
     print(f"one solve under the profiler: wall {wall_ms:.3f} ms, device busy "
           f"{busy:.3f} ms, device idle share {1 - busy / wall_ms:.3f}, "
           f"{sum(r[1] for r in kernels)} device operations")
+    own = {name: [{"count": c, "ms": ms} for key, c, ms in kernels
+                  if SYMBOL[name] in key] for name in ("assemble_obs",
+                                                       "cost_obs")}
+    print(f"the two kernels in this trace: {own}")
     # each range appears twice: on the host (its host time and the device
     # time of the operations it launched) and as a device-side annotation
     layers = sorted([(e.key, e.count, e.cpu_time_total / 1e3,
@@ -299,6 +314,7 @@ def where_time_goes(problem):
         print(f"  {ms:9.4f} | {count:5d} | {key[:90]}")
     return {"wall_ms": wall_ms, "busy_ms": busy,
             "idle_share": 1 - busy / wall_ms, "syncs": dict(syncs),
+            "kernels_in_trace": own,
             "layers": [{"name": k, "count": c, "host_ms": h, "device_ms": d}
                        for k, c, h, d in layers],
             "top": [{"name": k[:120], "count": c, "ms": m}

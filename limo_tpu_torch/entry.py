@@ -10,7 +10,9 @@ use, lidar depth on every landmark.
 
 :func:`kernel_check_windows` lists the windows on which the kernels are
 held against their plain versions: the bench window and a 2-camera window
-(:func:`two_camera_window`), each with and without lidar depth.
+(:func:`two_camera_window`), each with and without lidar depth, and a
+window of 40 keyframe slots whose keyframes in use sit in slots 28-39
+(:func:`rolled_window`).
 """
 
 from __future__ import annotations
@@ -131,6 +133,25 @@ def two_camera_window(K=6, L=1000, with_depth=True, seed=5, device="cuda"):
     return w, _all_selected(w), rig
 
 
+def rolled_window(device="cuda"):
+    """``make_problem(40, 999, 12, 700, float32, seed=3)`` with every
+    keyframe-indexed field rolled by 28 slots: the 12 keyframes in use sit
+    in slots 28-39, so slots 32 and above hold observations, and L = 999
+    fills no tile of landmarks. 12 keyframes, as in the bench window: over
+    20 frames the drive brings landmarks to 4 m, where some U entries are
+    sums of far larger terms, and float32 rounding alone exceeds the
+    kernels' tolerance (tests/test_torch_cuda.py). Returns
+    (window, sel, rig, cfg)."""
+    w, sel, rig, cfg = make_problem(40, 999, 12, 700, torch.float32, seed=3,
+                                    device=device)
+    kf_fields = ("stamps", "poses", "kf_valid", "fix_pose", "fix_scale",
+                 "planes", "plane_valid")
+    w = w._replace(**{f: torch.roll(getattr(w, f), 28, 0) for f in kf_fields},
+                   obs=torch.roll(w.obs, 28, 1),
+                   obs_mask=torch.roll(w.obs_mask, 28, 1))
+    return w, sel, rig, cfg
+
+
 def kernel_check_windows(device="cuda"):
     """Yield (name, (window, sel, rig, cfg)) for the kernel checks."""
     for depth in (True, False):
@@ -139,3 +160,4 @@ def kernel_check_windows(device="cuda"):
                             with_depth=depth, seed=1, device=device))
         w, sel, rig = two_camera_window(with_depth=depth, device=device)
         yield f"C=2 L=1000 depth={depth}", (w, sel, rig, LimoConfig())
+    yield "K=40 (slots 28-39) L=999", rolled_window(device)

@@ -89,7 +89,7 @@ def assembly_plan(dtype, device, cfg) -> str:
 
     The device alone decides: ``"plain(cpu)"`` on the CPU (the kernels'
     plain versions, any float dtype), ``"cuda[block=N]"`` on a card (the
-    hand-written kernels, N landmarks per thread block). A card has no
+    hand-written kernels, N threads per block). A card has no
     plain path, so this raises for a card window that is not float32 and
     for ``SolverConfig.use_pallas_assembly=False`` there (the field stays in
     the config for parity with the reference package)."""

@@ -3,18 +3,23 @@ plain PyTorch versions — the counterpart of the reference package's
 ``solver/pallas_assemble.py``.
 
 Two kernels (``csrc/assemble.cu``), both over the lane-major operands of
-:func:`limo_tpu_torch.solver.ba_core._kernel_inputs`:
+:func:`limo_tpu_torch.solver.ba_core._kernel_inputs`, one thread per
+(landmark, keyframe) pair:
 
 - :func:`assemble_obs` (kernel ``assemble_obs_kernel``): residuals, IRLS
   weights and analytic Jacobians (:mod:`limo_tpu_torch.solver.analytic`)
-  in registers, writing only the reduced blocks
+  in registers, writing only the reduced blocks, in these layouts:
 
       V  [L,3,3]  landmark Hessian blocks
       b_l[L,3]
       W  [L,K,6,3] pose↔landmark cross blocks
-      U  [K,6,6]  pose blocks        (per-block partials, summed here)
+      U  [K,6,6]  pose blocks (full symmetric)
       b_pose [K,6]
-      cost scalar (robust, per-block partials)
+      cost []     robust cost
+
+  The sums over landmarks (U, b_pose, cost) run inside the kernel, in a
+  fixed order: per block into partials (scratch the wrapper allocates),
+  then over the blocks in the block that finishes last.
 
 - :func:`cost_obs` (kernel ``cost_obs_kernel``): the robust observation
   cost only, for LM accept/reject and the trim rounds. On the same inputs
@@ -22,7 +27,8 @@ Two kernels (``csrc/assemble.cu``), both over the lane-major operands of
 
 Each wrapper runs its plain version (:func:`assemble_obs_plain`,
 :func:`cost_obs_plain`) when it is given CPU tensors; on CUDA tensors it
-launches the kernel or raises. ``launches`` counts the kernel launches.
+checks the operands, allocates the outputs and launches the kernel, or
+raises. ``launches`` counts the kernel launches.
 
 The kernels are built at first use with ``nvcc`` for ``sm_90a`` into
 ``build/limo_tpu_torch/`` of the checkout and bound through a plain C
@@ -78,7 +84,7 @@ class Build(NamedTuple):
     log: str               # nvcc's report (-Xptxas -v: registers, spills)
 
 
-_build: Build | None = None
+_build: Build | None = None   # the library the wrappers launch
 
 
 def _nvcc() -> str:
@@ -93,41 +99,63 @@ def _nvcc() -> str:
 
 
 def build() -> Build:
-    """Compile ``csrc/assemble.cu`` (once per source and flags) and load it."""
+    """The kernels the wrappers launch: ``csrc/assemble.cu`` as it stands,
+    compiled at first use (:func:`compile_kernels`)."""
     global _build
-    if _build is not None:
-        return _build
+    if _build is None:
+        _build = compile_kernels()
+    return _build
+
+
+def compile_kernels(defines: tuple[str, ...] = ()) -> Build:
+    """Compile ``csrc/assemble.cu`` with nvcc (once per source, flags and
+    ``-D`` defines, which select a variant of the kernels' mapping) and
+    load it."""
+    flags = (*NVCC_FLAGS, *defines)
     tag = hashlib.sha256(_SRC.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+                         + " ".join(flags).encode()).hexdigest()[:12]
     so = _BUILD_DIR / f"libassemble-{tag}.so"
     seconds, log = 0.0, ""
     if not so.exists():
         _BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
         t0 = time.perf_counter()
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                               str(_SRC)], capture_output=True, text=True)
+        proc = subprocess.run([_nvcc(), *flags, "-o", str(tmp), str(_SRC)],
+                              capture_output=True, text=True)
         seconds = time.perf_counter() - t0
         log = proc.stdout + proc.stderr
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
         os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
+    return Build(lib=bind(ctypes.CDLL(str(so))), path=so, seconds=seconds,
+                 log=log)
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of ``csrc/assemble.cu`` on a loaded library."""
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     ins = [ptr] * 7 + [i32, i32, i32, f32, f32]
-    lib.limo_assemble_obs.argtypes = ins + [ptr] * 5 + [ptr]
-    lib.limo_assemble_obs.restype = i32
-    lib.limo_cost_obs.argtypes = ins + [ptr] + [ptr]
-    lib.limo_cost_obs.restype = i32
-    lib.limo_block_size.argtypes = []
-    lib.limo_block_size.restype = i32
-    _build = Build(lib=lib, path=so, seconds=seconds, log=log)
-    return _build
+    # outputs, scratch (partials, counter), stream
+    lib.limo_assemble_obs.argtypes = ins + [ptr] * 6 + [ptr] * 3 + [ptr]
+    lib.limo_cost_obs.argtypes = ins + [ptr] + [ptr] * 2 + [ptr]
+    lib.limo_noop.argtypes = [i32, ptr]
+    lib.limo_ub_row.argtypes = [i32]
+    lib.limo_block_size.argtypes = lib.limo_block_landmarks.argtypes = []
+    for fn in (lib.limo_assemble_obs, lib.limo_cost_obs, lib.limo_noop,
+               lib.limo_block_size, lib.limo_block_landmarks,
+               lib.limo_ub_row):
+        fn.restype = i32
+    return lib
 
 
 def block_size() -> int:
-    """Threads (= landmarks) per block of both kernels."""
+    """Threads per block of both kernels."""
     return build().lib.limo_block_size()
+
+
+def n_blocks(L: int) -> int:
+    """Blocks of both kernels for L landmarks (one tile of landmarks each)."""
+    return -(-L // build().lib.limo_block_landmarks())
 
 
 # ---------------------------------------------------------------------------
@@ -225,26 +253,49 @@ def _kernel_args(ops, K, C):
     return L, [t.data_ptr() for t in ops]
 
 
+# The kernels' cross-block ticket counter, one per device, zeroed once; each
+# launch leaves it at 0 again. Launches that share a counter must not run
+# concurrently: the port issues every launch on the current stream of one
+# thread, so they run one after another.
+_counters: dict[torch.device, torch.Tensor] = {}
+
+
+def _counter(device) -> torch.Tensor:
+    device = torch.device(device)
+    if device not in _counters:
+        _counters[device] = torch.zeros((), dtype=torch.int32, device=device)
+    return _counters[device]
+
+
 def kernel_outputs(name: str, K: int, L: int, device) -> tuple:
-    """Uninitialised lane-major outputs of kernel ``name``: for
-    ``assemble_obs`` V [9,L], b_l [3,L], W [K*18,L], the per-block U/b_pose
-    partials [n_blocks,K,42] and cost partials [n_blocks]; for
-    ``cost_obs`` the cost partials only."""
-    nb = -(-L // block_size())
+    """``(outputs, scratch)`` of kernel ``name``. The outputs, uninitialised,
+    in their public layouts: for ``assemble_obs`` the fields of
+    :class:`ObsBlocks` (V [L,3,3], b_l [L,3], W [L,K,6,3], U [K,6,6],
+    b_pose [K,6], cost []), for ``cost_obs`` the cost []. The scratch: the
+    per-block U/b_pose partials (``assemble_obs`` only: [n_blocks, K*27
+    rounded up to whole float4s]), the per-block cost partials [n_blocks]
+    and the device's ticket counter."""
+    nb = n_blocks(L)
     new = lambda *shape: torch.empty(shape, dtype=torch.float32,
                                      device=device)
     if name == "assemble_obs":
-        return new(9, L), new(3, L), new(K * 18, L), new(nb, K, 42), new(nb)
-    return (new(nb),)
+        return ((new(L, 3, 3), new(L, 3), new(L, K, 6, 3), new(K, 6, 6),
+                 new(K, 6), new()),
+                (new(nb, build().lib.limo_ub_row(K)), new(nb),
+                 _counter(device)))
+    return (new(),), (new(nb), _counter(device))
 
 
-def launcher(name: str, ops, outs, K: int, C: int, a2r: float, a2d: float):
+def launcher(name: str, ops, outputs, scratch, K: int, C: int, a2r: float,
+             a2d: float):
     """Check the card operands of kernel ``name`` once and return a call
-    that launches it into ``outs`` (:func:`kernel_outputs`) on the current
-    stream, raises on a failed launch and counts each launch."""
+    that launches it into ``outputs`` with ``scratch``
+    (:func:`kernel_outputs`) on the current stream, raises on a failed
+    launch and counts each launch."""
     L, ptrs = _kernel_args(ops, K, C)
     fn = getattr(build().lib, f"limo_{name}")
-    args = (*ptrs, K, C, L, a2r, a2d, *(t.data_ptr() for t in outs))
+    args = (*ptrs, K, C, L, a2r, a2d,
+            *(t.data_ptr() for t in (*outputs, *scratch)))
     device = ops[0].device
 
     def launch():
@@ -269,15 +320,10 @@ def assemble_obs(obs_t, repr_base, depth_base, lm_t, wlm, pose_mats,
     ops = (obs_t, repr_base, depth_base, lm_t, wlm, pose_mats, cam_mats)
     if _on_cpu(ops):
         return assemble_obs_plain(*ops, K, C, a2r, a2d)
-    L = obs_t.shape[1]
-    outs = kernel_outputs("assemble_obs", K, L, obs_t.device)
-    launcher("assemble_obs", ops, outs, K, C, a2r, a2d)()
-    V_t, bl_t, W_t, up, cost_p = outs
-    ub = up.sum(0)                                              # [K,42]
-    return ObsBlocks(V=V_t.T.reshape(L, 3, 3), b_l=bl_t.T,
-                     W=W_t.T.reshape(L, K, 6, 3),
-                     U=ub[:, :36].reshape(K, 6, 6), b_pose=ub[:, 36:],
-                     cost=cost_p.sum())
+    outs, scratch = kernel_outputs("assemble_obs", K, obs_t.shape[1],
+                                   obs_t.device)
+    launcher("assemble_obs", ops, outs, scratch, K, C, a2r, a2d)()
+    return ObsBlocks(*outs)
 
 
 @traced("limo.cost_obs")
@@ -287,9 +333,10 @@ def cost_obs(obs_t, repr_base, depth_base, lm_t, wlm, pose_mats, cam_mats,
     ops = (obs_t, repr_base, depth_base, lm_t, wlm, pose_mats, cam_mats)
     if _on_cpu(ops):
         return cost_obs_plain(*ops, K, C, a2r, a2d)
-    outs = kernel_outputs("cost_obs", K, obs_t.shape[1], obs_t.device)
-    launcher("cost_obs", ops, outs, K, C, a2r, a2d)()
-    return outs[0].sum()
+    outs, scratch = kernel_outputs("cost_obs", K, obs_t.shape[1],
+                                   obs_t.device)
+    launcher("cost_obs", ops, outs, scratch, K, C, a2r, a2d)()
+    return outs[0]
 
 
 def compare_with_plain(ops, sizes) -> dict:

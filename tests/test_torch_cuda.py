@@ -13,12 +13,21 @@ Tolerances on the card are the reference's own kernel tolerances
 than the plain version's einsums. The two kernels' costs must be equal.
 """
 
+import contextlib
+import ctypes
 import dataclasses
+import re
+import shutil
+import subprocess
+import types
+from pathlib import Path
 
 import pytest
 import torch
 
-from limo_tpu_torch.entry import kernel_check_windows, make_problem
+from limo_tpu_torch.config import LimoConfig
+from limo_tpu_torch.entry import kernel_check_windows, make_problem, \
+    rolled_window, two_camera_window
 from limo_tpu_torch.solver import ba_core as t_ba
 from limo_tpu_torch.solver import cuda_assemble as ca
 from limo_tpu_torch.solver import solve_trimmed as t_solve_trimmed
@@ -90,6 +99,58 @@ def test_solve_evaluation_counts(monkeypatch):
     assert 0 < info.n_host_syncs <= info.n_iterations
 
 
+def test_rolled_window_fills_slots_past_32():
+    """The K > 32 check window: its keyframes in use sit in slots 28-39, so
+    slots 32 and above hold observations, and L = 999 fills no tile of
+    landmarks. Its plain assembly is the unrolled window's, with the
+    keyframe axis rolled by 28."""
+    w, sel, rig, cfg = rolled_window(device="cpu")
+    assert w.K == 40 and w.L % 32 != 0
+    assert w.kf_valid[28:].all() and not w.kf_valid[:28].any()
+    assert w.obs_mask[:, 32:].any()
+
+    def plain(problem):
+        ops, sizes = t_ba._obs_kernel_args(*problem)
+        return ca.assemble_obs_plain(*ops, **sizes)
+
+    out = plain((w, sel, rig, cfg))
+    ref = plain(make_problem(40, 999, 12, 700, torch.float32, seed=3,
+                             device="cpu"))
+    assert out.W[:, 32:].abs().sum() > 0
+    torch.testing.assert_close(out.W, torch.roll(ref.W, 28, 1))
+    torch.testing.assert_close(out.U, torch.roll(ref.U, 28, 0))
+    torch.testing.assert_close(out.b_pose, torch.roll(ref.b_pose, 28, 0))
+    for field in ("V", "b_l", "cost"):
+        torch.testing.assert_close(getattr(out, field), getattr(ref, field))
+
+
+def _f32_error_over_tolerance(problem):
+    """max over the assembly's fields of |f32 plain - f64 plain| over the
+    kernels' tolerance at the f64 value, on the same f32 operands."""
+    ops, sizes = t_ba._obs_kernel_args(*problem)
+    f32 = ca.assemble_obs_plain(*ops, **sizes)
+    f64 = ca.assemble_obs_plain(*[t.double() for t in ops], **sizes)
+    ratio = 0.0
+    for field in f32._fields:
+        rtol, atol = ca.TOLERANCES[field]
+        a, b = getattr(f32, field).double(), getattr(f64, field)
+        ratio = max(ratio, float(((a - b).abs() / (atol + rtol * b.abs()))
+                                 .max()))
+    return ratio
+
+
+def test_rolled_window_within_tolerance_of_f64():
+    """The K > 32 check window keeps float32 rounding well inside the
+    kernels' tolerance (its f32 plain assembly lies within half of it of
+    the f64 one), so kernel and plain cannot differ by more than the
+    tolerance from rounding alone. The same roll of 20 keyframes would not:
+    over 20 frames the drive brings landmarks to 4 m, and the f32 plain
+    assembly itself falls outside the tolerance of the f64 one."""
+    assert _f32_error_over_tolerance(rolled_window(device="cpu")) < 0.5
+    assert _f32_error_over_tolerance(make_problem(
+        40, 999, 20, 700, torch.float32, seed=2, device="cpu")) > 1.0
+
+
 def test_wrapper_rejects_bad_operands():
     """The launch path checks shapes, dtype and contiguity before it
     touches a pointer (the checks run on any device)."""
@@ -111,6 +172,52 @@ def test_wrapper_rejects_bad_operands():
         ca._on_cpu([ops[0], ops[1].to("meta")])
 
 
+def _emulated_kernels(tmp_path):
+    """``csrc/assemble.cu`` compiled for the CPU against tests/cuda_emu.h
+    (or a skip where there is no g++), bound like the nvcc build."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++")
+    src = ca._SRC.read_text()
+    src = src.replace("#include <cuda_runtime.h>",
+                      f'#include "{Path(__file__).with_name("cuda_emu.h")}"')
+    src = src.replace("extern __shared__ float smem[];",
+                      "float* smem = emu_dyn_smem();")
+    src = re.sub(r"(\w+)<<<(.*?)>>>", r"emu_launcher(\1, \2)", src,
+                 flags=re.S)
+    cpp, so = tmp_path / "assemble_emu.cpp", tmp_path / "libassemble_emu.so"
+    cpp.write_text(src)
+    # -ffp-contract=off stands for nvcc's -fmad=false
+    subprocess.run([gxx, "-std=c++20", "-O1", "-ffp-contract=off", "-fPIC",
+                    "-shared", "-pthread", "-Wno-unknown-pragmas", "-o",
+                    str(so), str(cpp)], check=True, capture_output=True)
+    return ca.bind(ctypes.CDLL(str(so)))
+
+
+def test_kernel_source_emulated_on_cpu(tmp_path, monkeypatch):
+    """The kernels' own source, run on the CPU (one thread per CUDA thread,
+    tests/cuda_emu.h) through the wrappers' launch path: on the 2-camera
+    window and the K > 32 window, every output within TOLERANCES of the
+    plain version and the two costs equal (compare_with_plain), a second
+    launch bit-identical, and the ticket counter back at 0."""
+    lib = _emulated_kernels(tmp_path)
+    monkeypatch.setattr(ca, "_build", ca.Build(lib=lib, path=Path(),
+                                               seconds=0.0, log=""))
+    monkeypatch.setattr(ca, "_counters", {})
+    monkeypatch.setattr(ca, "_on_cpu", lambda ops: False)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: types.SimpleNamespace(cuda_stream=0))
+    w, sel, rig = two_camera_window(device="cpu")
+    for problem in ((w, sel, rig, LimoConfig()), rolled_window(device="cpu")):
+        ops, sizes = t_ba._obs_kernel_args(*problem)
+        ca.compare_with_plain(ops, sizes)
+        first, again = (ca.assemble_obs(*ops, **sizes) for _ in range(2))
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+        assert int(ca._counters[torch.device("cpu")]) == 0
+
+
 # ---------------------------------------------------------------------------
 # On the card
 # ---------------------------------------------------------------------------
@@ -121,6 +228,49 @@ def test_kernels_match_plain_on_card(cuda):
         errs = ca.compare_with_plain(*t_ba._obs_kernel_args(w, sel, rig, cfg))
         torch.cuda.synchronize()
         assert set(errs) == {"assemble_obs", "cost_obs"}, name
+
+
+@pytest.mark.gpu
+def test_kernels_on_k40_ragged_window(cuda):
+    """K = 40 keyframe slots, observed in slots 28-39 (past one warp's 32),
+    and L = 999, which fills no tile: both kernels against their plain
+    versions, with nonzero cross blocks in the slots past 32."""
+    w, sel, rig, cfg = rolled_window(cuda)
+    ops, sizes = t_ba._obs_kernel_args(w, sel, rig, cfg)
+    ca.compare_with_plain(ops, sizes)
+    assert ca.assemble_obs(*ops, **sizes).W[:, 32:].abs().sum() > 0
+
+
+@pytest.mark.gpu
+def test_repeated_launches_bit_identical(cuda):
+    """20 launches on the same inputs give the same bits: the cross-block
+    counter resets and the in-kernel sums run in a fixed order."""
+    for _, (w, sel, rig, cfg) in kernel_check_windows(cuda):
+        ops, sizes = t_ba._obs_kernel_args(w, sel, rig, cfg)
+        first, cost = ca.assemble_obs(*ops, **sizes), ca.cost_obs(*ops, **sizes)
+        for _ in range(19):
+            again = ca.assemble_obs(*ops, **sizes)
+            assert all(torch.equal(a, b) for a, b in zip(first, again))
+            assert torch.equal(ca.cost_obs(*ops, **sizes), cost)
+
+
+@pytest.mark.gpu
+def test_public_output_layouts(cuda):
+    """The kernel writes the public layouts: contiguous tensors with the
+    shapes of ObsBlocks, on the card, and a 0-d cost."""
+    w, sel, rig, cfg = rolled_window(cuda)
+    ops, sizes = t_ba._obs_kernel_args(w, sel, rig, cfg)
+    K, L = sizes["K"], w.L
+    out = ca.assemble_obs(*ops, **sizes)
+    shapes = {"V": (L, 3, 3), "b_l": (L, 3), "W": (L, K, 6, 3),
+              "U": (K, 6, 6), "b_pose": (K, 6), "cost": ()}
+    for field, shape in shapes.items():
+        t = getattr(out, field)
+        assert tuple(t.shape) == shape and t.is_contiguous(), field
+        assert t.device.type == "cuda" and t.dtype == torch.float32, field
+    assert torch.equal(out.U, out.U.transpose(1, 2))
+    cost = ca.cost_obs(*ops, **sizes)
+    assert cost.shape == () and cost.is_contiguous()
 
 
 @pytest.mark.gpu
