@@ -13,7 +13,7 @@ Phases (any failure ends the run with a non-zero exit, and no result):
    (K=6, C=2, L=1000), depth on and off, and on 40 keyframe slots with the
    keyframes in use in slots 28-39 (L=999); 20 launches of each kernel on
    the same inputs bit-identical; the kernel's device time per launch (from
-   the torch.profiler trace, else CUDA graph replay: kernel_times.device_ms)
+   the torch.profiler trace, else CUDA graph replay: ``device_ms``)
    beside an empty kernel's on the same grid (the launch floor), the whole
    wrapper, the plain version and the least time the card could take
    (bound);
@@ -34,6 +34,7 @@ the run are written under chiprun_out/.
 
 import json
 import statistics
+import subprocess
 import sys
 import time
 import traceback
@@ -44,7 +45,6 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from kernel_times import SYMBOL, card_line, device_ms, events_ms
 from limo_tpu_torch.entry import kernel_check_windows, make_problem
 from limo_tpu_torch.solver import ba_core, cuda_assemble as ca
 from limo_tpu_torch.solver import solve_trimmed
@@ -69,6 +69,9 @@ REPLACES = {
 }
 N_REPEAT = 20
 OUT = Path("chiprun_out")
+# each kernel's symbol in the profiler's trace
+SYMBOL = {"assemble_obs": "assemble_obs_kernel", "cost_obs": "cost_obs_kernel",
+          "noop": "noop_kernel"}
 
 
 def check(ok, msg):
@@ -78,6 +81,77 @@ def check(ok, msg):
 
 def phase(name):
     print(f"\n== {name}", flush=True)
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+
+
+def events_ms(fn, n_batches, per_batch, warmup=3):
+    """Median over batches of the per-call time of ``fn`` (CUDA events
+    around ``per_batch`` back-to-back calls): paced by the host where a
+    call's host work outlasts its device work."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(n_batches):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(per_batch):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / per_batch)
+    return statistics.median(times)
+
+
+def profiled_ms(fn, symbol, n=50):
+    """Device time (ms) per launch of kernel ``symbol`` over ``n`` calls of
+    ``fn`` (after one warm-up call), from the torch.profiler trace; None
+    if the trace does not hold the kernel's ``n`` launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
+            as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and symbol in e.key]
+    if len(hits) != 1 or hits[0].count != n:
+        return None
+    return hits[0].device_time_total / 1e3 / n
+
+
+def graph_ms(fn, n=50, reps=11):
+    """Device time (ms) per call of ``fn`` from replaying a CUDA graph that
+    captured ``n`` calls (one warm-up call outside the capture): the median
+    over ``reps`` replays, CUDA events around each. It includes whatever
+    else ``fn`` launches and the gaps between launches inside the graph."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    return events_ms(graph.replay, reps, 1, warmup=1) / n
+
+
+def device_ms(fn, symbol):
+    """(ms per launch of kernel ``symbol`` in calls of ``fn``, method): the
+    profiler's trace, taken twice if the first lacks the kernel's launches,
+    then CUDA graph replay."""
+    for _ in range(2):
+        ms = profiled_ms(fn, symbol)
+        if ms is not None:
+            return ms, "torch.profiler trace"
+    return graph_ms(fn), "CUDA graph replay"
 
 
 def check_repeats(name, ops, sizes):

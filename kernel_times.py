@@ -1,237 +1,104 @@
-"""Device time per launch of the port's two CUDA kernels on one card.
+"""A/B of the port's kernels and bench solve between checkouts, on one card.
 
 Run from the repository root on a machine with one NVIDIA card:
 
-    python3 kernel_times.py                # this checkout's kernels
-    python3 kernel_times.py --root DIR     # the kernels of the checkout in DIR
-    python3 kernel_times.py --variants     # the mappings of csrc/assemble.cu
-    python3 kernel_times.py --timeline     # where assemble_obs's time goes
+    python3 kernel_times.py                # this checkout
+    python3 kernel_times.py --root DIR     # the checkout in DIR
 
-Every time is taken at the bench width (``make_problem(20, 1536, 12, 800,
-float32, seed=1)``) over 50 calls of each wrapper
-(``cuda_assemble.assemble_obs`` / ``cost_obs``): the kernel's own device
-time in the torch.profiler trace, picked by its symbol, over its count
-(CUDA graph replay if the trace lacks the kernel; each time says which).
-So the number does not depend on what a wrapper does around its launch,
-and checkouts with other wrappers (``--root``: an unpacked parent commit,
-for A/B on one card) compare like with like.
+To compare two commits, unpack the other's package into a directory that
+git ignores (``git archive <commit> limo_tpu_torch | tar -x -C
+build/parent``) and run parent, change, change, parent in one session on
+one card: solve times on the card move from machine to machine.
 
-``--variants`` builds ``csrc/assemble.cu`` once for each (``LIMO_TILE``,
-``LIMO_WARPS``) in ``VARIANTS``, holds each build against the plain versions
-on every check window (``cuda_assemble.compare_with_plain``), and reports
-ptxas's registers and spills beside its times.
+Each run prints one JSON line, then the card's name and power limit as
+nvidia-smi gives them:
 
-``--timeline`` builds ``csrc/assemble.cu`` with ``-DLIMO_TIMELINE``: thread 0
-of every block of ``assemble_obs_kernel`` stamps the device clock
-(%globaltimer, ns) at its start, after its keyframe rounds, after writing
-its partials, after taking its ticket, and (the last block) after the
-cross-block sums. Over 20 launches it reports the medians of: the rounds
-and the V/b_l sums per block, the fence and ticket per block, when the last
-block arrives, the last block's sums, and the end, all from the first
-block's start.
-
-Prints one JSON line per configuration, then the card's name and power
-limit as nvidia-smi gives them.
+- ``kernel_ms``: each kernel's device time per launch at the bench width
+  (``make_problem(20, 1536, 12, 800, float32, seed=1)``) over 50 calls of
+  its wrapper, from the torch.profiler trace (``chip_smoke.device_ms``).
+  The wrapper's own work does not enter it, so checkouts with other
+  wrappers compare like with like.
+- ``solve``: the bench solve, ms per solve (CUDA events around each of 10
+  solves after a warm-up: median, min, max), LM iterations, final cost.
+- ``seeds``: one solve on the card of the bench-width window of each seed
+  in ``SEEDS``: LM iterations, trim rounds, trimmed landmarks, final cost,
+  beside the same window solved in float64 on the CPU (the plain path),
+  and the card's final cost relative to that one's.
 """
 
 import argparse
 import json
-import re
 import statistics
-import subprocess
 import sys
 
 import torch
 
-# each kernel's symbol in the profiler's trace
-SYMBOL = {"assemble_obs": "assemble_obs_kernel", "cost_obs": "cost_obs_kernel",
-          "noop": "noop_kernel"}
-# (landmarks per block, warps per block)
-VARIANTS = ((32, 8), (32, 16), (16, 8), (16, 12), (16, 16))
+SEEDS = (1, 2, 3, 4)
+N_SOLVES = 10
 
 
-def card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
-
-
-def events_ms(fn, n_batches, per_batch, warmup=3):
-    """Median over batches of the per-call time of ``fn`` (CUDA events
-    around ``per_batch`` back-to-back calls): paced by the host where a
-    call's host work outlasts its device work."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(n_batches):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(per_batch):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / per_batch)
-    return statistics.median(times)
-
-
-def profiled_ms(fn, symbol, n=50):
-    """Device time (ms) per launch of kernel ``symbol`` over ``n`` calls of
-    ``fn`` (after one warm-up call), from the torch.profiler trace; None
-    if the trace does not hold the kernel's ``n`` launches."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
-            as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    hits = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and symbol in e.key]
-    if len(hits) != 1 or hits[0].count != n:
-        return None
-    return hits[0].device_time_total / 1e3 / n
-
-
-def graph_ms(fn, n=50, reps=11):
-    """Device time (ms) per call of ``fn`` from replaying a CUDA graph that
-    captured ``n`` calls (one warm-up call outside the capture): the median
-    over ``reps`` replays, CUDA events around each. It includes whatever
-    else ``fn`` launches and the gaps between launches inside the graph."""
-    fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(n):
-            fn()
-    return events_ms(graph.replay, reps, 1, warmup=1) / n
-
-
-def device_ms(fn, symbol):
-    """(ms per launch of kernel ``symbol`` in calls of ``fn``, method): the
-    profiler's trace; a trace that lacks the kernel's launches (seen where
-    one process loads several builds of the kernels) is taken again, then
-    CUDA graph replay."""
-    for _ in range(2):
-        ms = profiled_ms(fn, symbol)
-        if ms is not None:
-            return ms, "torch.profiler trace"
-    return graph_ms(fn), "CUDA graph replay"
-
-
-def ptxas_report(log: str) -> dict:
-    """{kernel symbol: {"registers": n, "spill_bytes": n}} from nvcc's
-    -Xptxas -v output."""
-    out, name = {}, None
-    for line in log.splitlines():
-        m = re.search(r"Compiling entry function '(\w+)'", line)
-        if m:
-            name = next((s for s in SYMBOL.values() if s in m.group(1)), None)
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
-        if m and name:
-            out.setdefault(name, {})["spill_bytes"] = int(m.group(1)) + int(
-                m.group(2))
-        m = re.search(r"Used (\d+) registers", line)
-        if m and name:
-            out.setdefault(name, {})["registers"] = int(m.group(1))
-    return out
-
-
-def kernel_ms(device):
+def kernel_ms(ca, ba_core, problem):
     """{kernel: (device ms per launch, method)} of the imported checkout's
-    wrappers at the bench width."""
-    from limo_tpu_torch.entry import make_problem
-    from limo_tpu_torch.solver import ba_core, cuda_assemble as ca
-    w, sel, rig, cfg = make_problem(20, 1536, 12, 800, torch.float32, seed=1,
-                                    device=device)
-    ops, sizes = ba_core._obs_kernel_args(w, sel, rig, cfg)
+    wrappers on ``problem``."""
+    from chip_smoke import SYMBOL, device_ms
+    ops, sizes = ba_core._obs_kernel_args(*problem)
     return {name: device_ms(lambda: getattr(ca, name)(*ops, **sizes),
                             SYMBOL[name])
             for name in ("assemble_obs", "cost_obs")}
 
 
-def variants(device):
-    """Each mapping of VARIANTS: checked against the plain versions, then
-    timed; the port's own build is restored after."""
-    from limo_tpu_torch.entry import kernel_check_windows
-    from limo_tpu_torch.solver import ba_core, cuda_assemble as ca
-    port = ca.build()
-    try:
-        for tile, warps in VARIANTS:
-            ca._build = ca.compile_kernels((f"-DLIMO_TILE={tile}",
-                                            f"-DLIMO_WARPS={warps}"))
-            for _, (w, sel, rig, cfg) in kernel_check_windows(device):
-                ca.compare_with_plain(*ba_core._obs_kernel_args(w, sel, rig,
-                                                                cfg))
-            torch.cuda.synchronize()
-            print(json.dumps({"tile": tile, "warps": warps,
-                              "ptxas": ptxas_report(ca._build.log),
-                              "ms": kernel_ms(device)}), flush=True)
-    finally:
-        ca._build = port
+def solve_ms(solve_trimmed, problem):
+    """ms per solve of ``problem`` on the card and the last solve's info."""
+    solve_trimmed(*problem)                                   # warm-up
+    times = []
+    for _ in range(N_SOLVES):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        info = solve_trimmed(*problem)[2]
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return {"ms_per_solve": statistics.median(times), "min_ms": min(times),
+            "max_ms": max(times), "iterations": info.n_iterations,
+            "final_cost": float(info.final_cost)}
 
 
-def timeline(device, n=20):
-    """Medians over ``n`` launches of the assembly kernel's device timeline
-    (ns, see the module docstring), at the bench width."""
-    import ctypes
-    import numpy as np
-    from limo_tpu_torch.entry import make_problem
-    from limo_tpu_torch.solver import ba_core, cuda_assemble as ca
-    port = ca.build()
-    try:
-        ca._build = ca.compile_kernels(("-DLIMO_TIMELINE",))
-        lib = ca._build.lib
-        lib.limo_timeline.argtypes = [ctypes.c_void_p, ctypes.c_int]
-        w, sel, rig, cfg = make_problem(20, 1536, 12, 800, torch.float32,
-                                        seed=1, device=device)
-        ops, sizes = ba_core._obs_kernel_args(w, sel, rig, cfg)
-        nb = ca.n_blocks(ops[0].shape[1])
-        rows = []
-        for _ in range(n + 1):                      # the first is a warm-up
-            ca.assemble_obs(*ops, **sizes)
-            torch.cuda.synchronize()
-            t = np.zeros((nb, 5), np.uint64)
-            if lib.limo_timeline(t.ctypes.data, nb) != 0:
-                raise RuntimeError("kernel_times: timeline copy failed")
-            t = t.astype(np.int64) - int(t[:, 0].min())
-            last = int(np.argmax(t[:, 4]))
-            rows.append([np.median(t[:, 1] - t[:, 0]),
-                         np.median(t[:, 2] - t[:, 1]),
-                         np.median(t[:, 3] - t[:, 2]), t[:, 3].max(),
-                         t[last, 4] - t[last, 3], t[last, 4]])
-    finally:
-        ca._build = port
-    keys = ("rounds", "v_bl_sums", "fence_ticket", "last_arrives",
-            "last_block_sums", "end")
-    return dict(zip(keys, np.median(np.array(rows[1:], float), 0).tolist()))
+def summary(info) -> dict:
+    return {"iterations": info.n_iterations, "rounds": info.n_rounds,
+            "trimmed": int(info.n_trimmed),
+            "final_cost": float(info.final_cost)}
 
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--root", help="time the kernels of the checkout in "
-                        "this directory")
-    parser.add_argument("--variants", action="store_true",
-                        help="time every mapping of VARIANTS")
-    parser.add_argument("--timeline", action="store_true",
-                        help="the assembly kernel's device timeline")
+    parser.add_argument("--root", help="time the checkout in this directory")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("kernel_times: no CUDA card")
     if args.root:
         sys.path.insert(0, args.root)
-    device = torch.device("cuda")
-    if args.variants:
-        variants(device)
-    elif args.timeline:
-        print(json.dumps({"timeline_ns": timeline(device)}), flush=True)
-    else:
-        print(json.dumps({"root": args.root or ".",
-                          "ms": kernel_ms(device)}), flush=True)
+    # imported after the path is set, so that they are the checkout's
+    from chip_smoke import card_line
+    from limo_tpu_torch.entry import make_problem
+    from limo_tpu_torch.solver import ba_core, cuda_assemble as ca
+    from limo_tpu_torch.solver import solve_trimmed
+
+    def bench(seed, dtype=torch.float32, device="cuda"):
+        return make_problem(20, 1536, 12, 800, dtype, seed=seed,
+                            device=device)
+
+    record = {"root": args.root or ".",
+              "kernel_ms": kernel_ms(ca, ba_core, bench(1)),
+              "solve": solve_ms(solve_trimmed, bench(1)), "seeds": {}}
+    for seed in SEEDS:
+        card = summary(solve_trimmed(*bench(seed))[2])
+        cpu = summary(solve_trimmed(*bench(seed, torch.float64, "cpu"))[2])
+        record["seeds"][seed] = {
+            "card_f32": card, "cpu_f64": cpu,
+            "rel_cost": abs(card["final_cost"] - cpu["final_cost"])
+            / cpu["final_cost"]}
+    print(json.dumps(record), flush=True)
     print(card_line())
 
 

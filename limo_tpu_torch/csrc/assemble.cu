@@ -38,11 +38,11 @@
 // round: one keyframe per thread. K > 32 takes more rounds; the block size is
 // fixed, so the registers do not depend on K. A half-warp's loads stay
 // coalesced: lane li reads column l0 + li of its keyframe's rows.
-// The choice (kernel_times.py --variants, H100): of 32 x 8, 32 x 16, 16 x 8,
-// 16 x 12 and 16 x 16 landmarks x warps, 16 x 16 was the fastest; it fills
-// 96 SMs instead of 48 and needs one round at K <= 32. ptxas caps it at 128
-// registers (512 threads), with 36 bytes of spills; 16 x 12 (168 registers,
-// no spills) was ~0.5 us slower.
+// The choice (measured on the H100, PERF.md section 6): of 32 x 8, 32 x 16,
+// 16 x 8, 16 x 12 and 16 x 16 landmarks x warps, 16 x 16 was the fastest; it
+// fills 96 SMs instead of 48 and needs one round at K <= 32. ptxas caps it at
+// 128 registers (512 threads), with 36 bytes of spills; 16 x 12 (168
+// registers, no spills) was ~0.5 us slower.
 //
 // Reductions, all in a fixed order and without floating-point atomics, so
 // repeated solves are bit-identical:
@@ -64,8 +64,8 @@
 //                    a fixed number of block segments per column, segments in
 //                    order), writes U (both triangles), b_pose and the cost,
 //                    and resets the counter to 0 for the next launch. The
-//                    counter is shared by the launches of one stream (the
-//                    wrapper's per-device cache).
+//                    wrapper keeps one counter per device and stream, so
+//                    the launches that share it run one after another.
 // W is staged in shared memory one round (32 keyframes) at a time: a
 // landmark's keyframes of a round are contiguous floats of W, so the block
 // stores them coalesced, and the stage (37 KB) does not grow with K.
@@ -86,35 +86,10 @@
 
 #include <cuda_runtime.h>
 
-// The mapping's two sizes; the defaults are the port's (see the note above).
-// Other values build variants for measurement (-DLIMO_TILE=32 -DLIMO_WARPS=8).
-#ifndef LIMO_TILE
-#define LIMO_TILE 16
-#endif
-#ifndef LIMO_WARPS
-#define LIMO_WARPS 16
-#endif
-
-// -DLIMO_TIMELINE builds the device timeline of kernel_times.py --timeline:
-// thread 0 of each block stamps %globaltimer (ns) at five points of
-// assemble_obs_kernel (start; rounds done; partials written; ticket taken;
-// in the last block, sums done), read back by limo_timeline.
-#ifdef LIMO_TIMELINE
-__device__ unsigned long long g_timeline[8192][5];
-#define STAMP(i)                                                                   \
-  if (threadIdx.x == 0 && blockIdx.x < 8192) {                                     \
-    unsigned long long t;                                                          \
-    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));                          \
-    g_timeline[blockIdx.x][i] = t;                                                 \
-  }
-#else
-#define STAMP(i)
-#endif
-
 namespace {
 
-constexpr int kTile = LIMO_TILE;         // landmarks per block: lanes of one keyframe
-constexpr int kWarps = LIMO_WARPS;
+constexpr int kTile = 16;                // landmarks per block: a half-warp of one keyframe
+constexpr int kWarps = 16;
 constexpr int kThreads = 32 * kWarps;    // threads per block
 constexpr int kSub = 32 / kTile;         // keyframes a warp holds at once
 constexpr int kRound = kWarps * kSub;    // keyframes per round of the block
@@ -122,8 +97,7 @@ constexpr int kUB = 27;  // partial per keyframe: 21 U upper-triangle entries + 
 constexpr int kW = 18;   // W block of one (landmark, keyframe): 6x3
 constexpr int kStage = kRound * kW + 1;  // floats per landmark in the W stage (+1: no bank conflicts)
 constexpr int kRed = kSub * kUB * (kTile + 1);  // floats per warp for its U / b_pose rows
-static_assert(kTile == 16 || kTile == 32, "a tile is a warp or a half-warp");
-static_assert(kWarps >= 1 && kThreads <= 1024, "threads per block");
+constexpr int kDevices = 64;             // devices whose shared-memory cap is recorded
 
 int grid_blocks(int L) { return (L + kTile - 1) / kTile; }
 
@@ -252,8 +226,9 @@ __device__ __forceinline__ void grid_cost(const float* part, float* out) {
   if (threadIdx.x == 0) *out = s;
 }
 
-// Floats of one block's U / b_pose partial row: K * 27, padded to whole float4s.
-__host__ __device__ __forceinline__ int ub_row(int K) { return (K * kUB + 3) / 4 * 4; }
+// Floats of one block's U / b_pose partial row: K * 27, padded to whole
+// float4s (the wrapper allocates the partials with the same rule).
+__device__ __forceinline__ int ub_row(int K) { return (K * kUB + 3) / 4 * 4; }
 
 // Writes the sum v of the U / b_pose partial rows (keyframe v / 27, entry
 // v % 27: U's upper triangle, then b_pose) to its place in U (both ways) or
@@ -381,7 +356,6 @@ assemble_obs_kernel(const float* __restrict__ obs_t, const float* __restrict__ r
   float* s_red = s_stage + kTile * kStage;  // [kWarps][kRed]: U / b_pose rows
   float* s_cost = s_red + kWarps * kRed;    // [kWarps]
   float* s_cam = s_cost + kWarps;           // [C*15]
-  STAMP(0);
   load_cams(cam_mats, C, s_cam);
 
   const Place me = place();
@@ -441,7 +415,6 @@ assemble_obs_kernel(const float* __restrict__ obs_t, const float* __restrict__ r
     __syncthreads();
   }
 
-  STAMP(1);
   // V / b_l: the block's slots summed in slot order (the stage is free now)
   float* s_vb = s_stage;  // [kRound][kTile][9]: V upper triangle (6), b_l (3)
   float* vb = s_vb + (me.slot * kTile + me.li) * 9;
@@ -463,9 +436,7 @@ assemble_obs_kernel(const float* __restrict__ obs_t, const float* __restrict__ r
       bl_out[(size_t)l0 * 3 + (t - n_l * 9)] = s;
   }
 
-  STAMP(2);
   const bool last = arrive_last(counter);
-  STAMP(3);
   if (!last) return;
   grid_cost(part_cost, cost_out);
   // U and b_pose: the blocks' partial rows summed in a fixed order, a float4
@@ -501,7 +472,6 @@ assemble_obs_kernel(const float* __restrict__ obs_t, const float* __restrict__ r
     }
     __syncthreads();
   }
-  STAMP(4);
   release(counter);
 }
 
@@ -545,10 +515,18 @@ cost_obs_kernel(const float* __restrict__ obs_t, const float* __restrict__ repr_
 
 __global__ void noop_kernel() {}
 
-int set_smem(const void* fn, size_t bytes) {
+// Lets kernel fn take `bytes` of dynamic shared memory where that is over the
+// default 48 KB. `allowed` is fn's own record of the cap set on each device,
+// so the attribute is set once per device (and again only for a larger size).
+int set_smem(const void* fn, size_t bytes, size_t (&allowed)[kDevices]) {
   if (bytes <= 48 * 1024) return 0;
-  return (int)cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)bytes);
+  int dev = 0;
+  int err = (int)cudaGetDevice(&dev);
+  if (err) return err;
+  if (dev < kDevices && bytes <= allowed[dev]) return 0;
+  err = (int)cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (!err && dev < kDevices) allowed[dev] = bytes;
+  return err;
 }
 
 }  // namespace
@@ -559,15 +537,14 @@ int limo_block_size() { return kThreads; }
 
 int limo_block_landmarks() { return kTile; }
 
-int limo_ub_row(int K) { return ub_row(K); }
-
 int limo_assemble_obs(const float* obs_t, const float* repr_base, const float* depth_base,
                       const float* lm_t, const float* wlm, const float* pose_mats,
                       const float* cam_mats, int K, int C, int L, float a2r, float a2d,
                       float* V, float* bl, float* W, float* U, float* bp, float* cost,
                       float* part_ub, float* part_cost, unsigned* counter, void* stream) {
   const size_t smem = sizeof(float) * (C * 15 + kTile * kStage + kWarps * kRed + kWarps);
-  int err = set_smem((const void*)assemble_obs_kernel, smem);
+  static size_t allowed[kDevices] = {};
+  int err = set_smem((const void*)assemble_obs_kernel, smem, allowed);
   if (err) return err;
   assemble_obs_kernel<<<grid_blocks(L), kThreads, smem, (cudaStream_t)stream>>>(
       obs_t, repr_base, depth_base, lm_t, wlm, pose_mats, cam_mats, K, C, L, a2r, a2d, V, bl,
@@ -580,7 +557,8 @@ int limo_cost_obs(const float* obs_t, const float* repr_base, const float* depth
                   const float* cam_mats, int K, int C, int L, float a2r, float a2d,
                   float* cost, float* part_cost, unsigned* counter, void* stream) {
   const size_t smem = sizeof(float) * (C * 15 + kWarps);
-  int err = set_smem((const void*)cost_obs_kernel, smem);
+  static size_t allowed[kDevices] = {};
+  int err = set_smem((const void*)cost_obs_kernel, smem, allowed);
   if (err) return err;
   cost_obs_kernel<<<grid_blocks(L), kThreads, smem, (cudaStream_t)stream>>>(
       obs_t, repr_base, depth_base, lm_t, wlm, pose_mats, cam_mats, K, C, L, a2r, a2d, cost,
@@ -593,12 +571,5 @@ int limo_noop(int L, void* stream) {
   noop_kernel<<<grid_blocks(L), kThreads, 0, (cudaStream_t)stream>>>();
   return (int)cudaGetLastError();
 }
-
-#ifdef LIMO_TIMELINE
-int limo_timeline(void* dst, int n_blocks) {
-  return (int)cudaMemcpyFromSymbol(dst, g_timeline,
-                                   sizeof(unsigned long long) * 5 * n_blocks);
-}
-#endif
 
 }  // extern "C"

@@ -99,36 +99,29 @@ def _nvcc() -> str:
 
 
 def build() -> Build:
-    """The kernels the wrappers launch: ``csrc/assemble.cu`` as it stands,
-    compiled at first use (:func:`compile_kernels`)."""
+    """The kernels the wrappers launch: ``csrc/assemble.cu`` compiled with
+    nvcc at first use (once per source and flags) and loaded."""
     global _build
-    if _build is None:
-        _build = compile_kernels()
-    return _build
-
-
-def compile_kernels(defines: tuple[str, ...] = ()) -> Build:
-    """Compile ``csrc/assemble.cu`` with nvcc (once per source, flags and
-    ``-D`` defines, which select a variant of the kernels' mapping) and
-    load it."""
-    flags = (*NVCC_FLAGS, *defines)
+    if _build is not None:
+        return _build
     tag = hashlib.sha256(_SRC.read_bytes()
-                         + " ".join(flags).encode()).hexdigest()[:12]
+                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     so = _BUILD_DIR / f"libassemble-{tag}.so"
     seconds, log = 0.0, ""
     if not so.exists():
         _BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
         t0 = time.perf_counter()
-        proc = subprocess.run([_nvcc(), *flags, "-o", str(tmp), str(_SRC)],
-                              capture_output=True, text=True)
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                               str(_SRC)], capture_output=True, text=True)
         seconds = time.perf_counter() - t0
         log = proc.stdout + proc.stderr
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
         os.replace(tmp, so)
-    return Build(lib=bind(ctypes.CDLL(str(so))), path=so, seconds=seconds,
-                 log=log)
+    _build = Build(lib=bind(ctypes.CDLL(str(so))), path=so, seconds=seconds,
+                   log=log)
+    return _build
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -139,11 +132,9 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.limo_assemble_obs.argtypes = ins + [ptr] * 6 + [ptr] * 3 + [ptr]
     lib.limo_cost_obs.argtypes = ins + [ptr] + [ptr] * 2 + [ptr]
     lib.limo_noop.argtypes = [i32, ptr]
-    lib.limo_ub_row.argtypes = [i32]
     lib.limo_block_size.argtypes = lib.limo_block_landmarks.argtypes = []
     for fn in (lib.limo_assemble_obs, lib.limo_cost_obs, lib.limo_noop,
-               lib.limo_block_size, lib.limo_block_landmarks,
-               lib.limo_ub_row):
+               lib.limo_block_size, lib.limo_block_landmarks):
         fn.restype = i32
     return lib
 
@@ -253,18 +244,24 @@ def _kernel_args(ops, K, C):
     return L, [t.data_ptr() for t in ops]
 
 
-# The kernels' cross-block ticket counter, one per device, zeroed once; each
-# launch leaves it at 0 again. Launches that share a counter must not run
-# concurrently: the port issues every launch on the current stream of one
-# thread, so they run one after another.
-_counters: dict[torch.device, torch.Tensor] = {}
+# The kernels' cross-block ticket counters, one per (device, stream), zeroed
+# once; each launch leaves its counter at 0 again. The launches on one
+# stream run one after another, so they share one counter safely; a launch
+# on another stream takes that stream's own.
+_counters: dict[tuple[torch.device, int], torch.Tensor] = {}
 
 
-def _counter(device) -> torch.Tensor:
-    device = torch.device(device)
-    if device not in _counters:
-        _counters[device] = torch.zeros((), dtype=torch.int32, device=device)
-    return _counters[device]
+def _counter(device: torch.device, stream: int) -> torch.Tensor:
+    key = (device, stream)
+    if key not in _counters:
+        _counters[key] = torch.zeros((), dtype=torch.int32, device=device)
+    return _counters[key]
+
+
+def ub_row(K: int) -> int:
+    """Floats of one block's U/b_pose partial row: K*27 rounded up to whole
+    float4s, as the kernel's ``ub_row`` reads them."""
+    return (K * 27 + 3) // 4 * 4
 
 
 def kernel_outputs(name: str, K: int, L: int, device) -> tuple:
@@ -272,26 +269,24 @@ def kernel_outputs(name: str, K: int, L: int, device) -> tuple:
     in their public layouts: for ``assemble_obs`` the fields of
     :class:`ObsBlocks` (V [L,3,3], b_l [L,3], W [L,K,6,3], U [K,6,6],
     b_pose [K,6], cost []), for ``cost_obs`` the cost []. The scratch: the
-    per-block U/b_pose partials (``assemble_obs`` only: [n_blocks, K*27
-    rounded up to whole float4s]), the per-block cost partials [n_blocks]
-    and the device's ticket counter."""
+    per-block U/b_pose partials (``assemble_obs`` only: [n_blocks,
+    :func:`ub_row`]) and the per-block cost partials [n_blocks]. The ticket
+    counter is the launch's own (one per device and stream)."""
     nb = n_blocks(L)
     new = lambda *shape: torch.empty(shape, dtype=torch.float32,
                                      device=device)
     if name == "assemble_obs":
         return ((new(L, 3, 3), new(L, 3), new(L, K, 6, 3), new(K, 6, 6),
-                 new(K, 6), new()),
-                (new(nb, build().lib.limo_ub_row(K)), new(nb),
-                 _counter(device)))
-    return (new(),), (new(nb), _counter(device))
+                 new(K, 6), new()), (new(nb, ub_row(K)), new(nb)))
+    return (new(),), (new(nb),)
 
 
 def launcher(name: str, ops, outputs, scratch, K: int, C: int, a2r: float,
              a2d: float):
     """Check the card operands of kernel ``name`` once and return a call
     that launches it into ``outputs`` with ``scratch``
-    (:func:`kernel_outputs`) on the current stream, raises on a failed
-    launch and counts each launch."""
+    (:func:`kernel_outputs`) and the stream's ticket counter on the current
+    stream, raises on a failed launch and counts each launch."""
     L, ptrs = _kernel_args(ops, K, C)
     fn = getattr(build().lib, f"limo_{name}")
     args = (*ptrs, K, C, L, a2r, a2d,
@@ -300,7 +295,8 @@ def launcher(name: str, ops, outputs, scratch, K: int, C: int, a2r: float,
 
     def launch():
         with torch.cuda.device(device):
-            rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+            stream = torch.cuda.current_stream().cuda_stream
+            rc = fn(*args, _counter(device, stream).data_ptr(), stream)
         if rc != 0:
             raise RuntimeError(f"{name}: kernel launch failed with CUDA "
                                f"error {rc}")

@@ -35,6 +35,10 @@ struct float4 {
 typedef void* cudaStream_t;
 enum { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 inline int cudaFuncSetAttribute(const void*, int, int) { return 0; }
+inline int cudaGetDevice(int* device) {
+  *device = 0;
+  return 0;
+}
 inline int cudaGetLastError() { return 0; }
 
 #define __global__

@@ -172,6 +172,18 @@ def test_wrapper_rejects_bad_operands():
         ca._on_cpu([ops[0], ops[1].to("meta")])
 
 
+def test_ticket_counter_per_stream(monkeypatch):
+    """Each (device, stream) has its own cross-block ticket counter, zeroed
+    when it is made and then reused: launches on a second stream never
+    share the first stream's counter."""
+    monkeypatch.setattr(ca, "_counters", {})
+    cpu = torch.device("cpu")
+    first, second = ca._counter(cpu, 1), ca._counter(cpu, 2)
+    assert first is not second
+    assert ca._counter(cpu, 1) is first
+    assert int(first) == 0 and first.dtype == torch.int32
+
+
 def _emulated_kernels(tmp_path):
     """``csrc/assemble.cu`` compiled for the CPU against tests/cuda_emu.h
     (or a skip where there is no g++), bound like the nvcc build."""
@@ -215,7 +227,7 @@ def test_kernel_source_emulated_on_cpu(tmp_path, monkeypatch):
         ca.compare_with_plain(ops, sizes)
         first, again = (ca.assemble_obs(*ops, **sizes) for _ in range(2))
         assert all(torch.equal(a, b) for a, b in zip(first, again))
-        assert int(ca._counters[torch.device("cpu")]) == 0
+        assert int(ca._counters[(torch.device("cpu"), 0)]) == 0
 
 
 # ---------------------------------------------------------------------------
