@@ -25,13 +25,24 @@ Phases (any failure ends the run with a non-zero exit, and no result):
    then one solve without lidar depth;
 5. where the time goes: one solve under torch.profiler (device time by
    kernel, the two kernels' own, device idle share) and the host syncs of
-   one solve.
+   one solve;
+6. the scan drive at full width (``entry.scan_drive()``: LimoConfig()'s
+   20 x 1536 x 1, 60 frames of a 10 m/s drive with lidar depth, f32):
+   the scan step through both kernels, frame by frame, with the launch
+   identity summed over its attempted solves; the kernels against their
+   plain versions on the windows of its first three solves; every solve
+   against the port's f64 solve of the same input on the CPU; the counts
+   against the reference package's (13 keyframes, 11 attempted solves);
+   a second pass bit-identical; 20 frames under torch.profiler; and the
+   same world without depth but with external priors for 30 frames, which
+   must accept a solve that moves the window.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. The profile table and a JSON record of
 the run are written under chiprun_out/.
 """
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -45,7 +56,11 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from limo_tpu_torch.entry import kernel_check_windows, make_problem
+from limo_tpu_torch.entry import kernel_check_windows, make_problem, \
+    scan_drive
+from limo_tpu_torch.geometry.camera import CameraRig
+from limo_tpu_torch.pipeline import scan_odometry as so
+from limo_tpu_torch.pipeline.metrics import ate_rmse
 from limo_tpu_torch.solver import ba_core, cuda_assemble as ca
 from limo_tpu_torch.solver import solve_trimmed
 
@@ -68,6 +83,27 @@ REPLACES = {
     "cost_obs": "limo_tpu/solver/pallas_assemble.py:122",
 }
 N_REPEAT = 20
+
+# the reference package's run_sequence on entry.scan_drive() (JAX on the
+# CPU): the same counts in f32 and in f64; ATE 5.121 m in both
+REF_SCAN = {"keyframes": 13, "attempted": 11, "accepted": 0, "po_ok": 1,
+            "ate_m": 5.121}
+# the same world without depth, external priors (rng seed 9, sigma 0.05 m),
+# the first 30 frames: the same counts in f32 and in f64; ATE 0.2460 m in
+# f32, 0.2455 m in f64
+MONO_FRAMES = 30
+REF_MONO = {"keyframes": 15, "attempted": 7, "accepted": 7, "ate_m": 0.246}
+# each attempted solve against the port's f64 solve of the same input on
+# the CPU (PERF.md, PR 4): the initial cost within 1e-4 (phase 4's
+# tolerance); the final cost finite, below the initial cost and within a
+# factor SCAN_FINAL_FACTOR of the f64 one. These windows are ill-posed (the
+# post-solve guard rejects every one of them): f32 and f64 LM part from the
+# first step (up to 5e-3 apart after it), and their final costs end up to
+# 3.07x apart on the CPU, in the reference package as in the port
+SCAN_INITIAL_RTOL = 1e-4
+SCAN_FINAL_FACTOR = 4.0
+N_SCAN_CHECK = 3
+SCAN_PROFILE_FRAMES = 20
 OUT = Path("chiprun_out")
 # each kernel's symbol in the profiler's trace
 SYMBOL = {"assemble_obs": "assemble_obs_kernel", "cost_obs": "cost_obs_kernel",
@@ -180,11 +216,11 @@ def bound(name, ops, outs, K, C):
                                  "operations"), nbytes
 
 
-def check_kernels(device):
-    """Phase 3: every kernel against its plain version; returns the
-    per-kernel error and timing record at the bench width."""
-    errs = {"assemble_obs": (0.0, 0.0), "cost_obs": (0.0, 0.0)}
-    for name, (w, sel, rig, cfg) in kernel_check_windows(device):
+def check_windows(windows, errs):
+    """Each kernel against its plain version on each (name, (window, sel,
+    rig, cfg)), and N_REPEAT bit-identical launches; returns ``errs``
+    (kernel -> (max abs, max rel) error) updated."""
+    for name, (w, sel, rig, cfg) in windows:
         ops, sizes = ba_core._obs_kernel_args(w, sel, rig, cfg)
         case = ca.compare_with_plain(ops, sizes)
         torch.cuda.synchronize()
@@ -194,6 +230,14 @@ def check_kernels(device):
         print(f"{name}: both kernels agree with their plain versions; "
               f"cost kernel == assembly kernel cost; {N_REPEAT} launches of "
               f"each bit-identical")
+    return errs
+
+
+def check_kernels(device):
+    """Phase 3: every kernel against its plain version; returns the
+    per-kernel error and timing record at the bench width."""
+    errs = check_windows(kernel_check_windows(device),
+                         {"assemble_obs": (0.0, 0.0), "cost_obs": (0.0, 0.0)})
 
     # timing at the bench width, depth on, in one call: the kernel alone
     # (the wrapper's launch into outputs allocated once), an empty kernel on
@@ -316,16 +360,14 @@ def main_path(device):
         "host_syncs": i0.n_host_syncs, "final_cost": final}
 
 
-def where_time_goes(problem):
-    """Phase 5: device time by kernel over one solve, and the host syncs
-    PyTorch reports for one solve."""
-    w, sel, rig, cfg = problem
-    torch.cuda.synchronize()
+@contextlib.contextmanager
+def counting_syncs():
+    """Count the synchronizing operations PyTorch reports (sync debug mode)
+    inside the block, by their innermost caller in the port (the warning is
+    raised inside the operation's call); yields the Counter."""
     syncs = Counter()
 
     def record(message, category, filename, lineno, file=None, line=None):
-        # attribute each synchronizing operation to the innermost caller
-        # in the port (the warning is raised inside the operation's call)
         if "synchroniz" in str(message):
             own = [f for f in traceback.extract_stack()
                    if "limo_tpu_torch" in f.filename]
@@ -338,61 +380,309 @@ def where_time_goes(problem):
         warnings.showwarning = record
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            solve_trimmed(w, sel, rig, cfg)
+            yield syncs
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    print(f"synchronizing operations in one solve (sync debug mode): "
-          f"{sum(syncs.values())}, by caller: {dict(syncs.most_common())}")
 
+
+def profiled(fn):
+    """(result of fn(), profile, wall ms) with ``fn`` under torch.profiler,
+    the card synchronized at the end."""
     from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
             as prof:
         t0 = time.perf_counter()
-        solve_trimmed(w, sel, rig, cfg)
+        result = fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    return result, prof, wall_ms
+
+
+def trace_summary(prof, wall_ms, name, per=1):
+    """Device operations, busy time and idle share from a trace, the two
+    kernels' own launches, and host/device ms per ``limo.*`` range, each
+    divided by ``per``; printed and returned (None if the trace holds no
+    device time)."""
     from torch.autograd import DeviceType
+    events = prof.key_averages()
     kernels = sorted([(e.key, e.count, e.device_time_total / 1e3)
-                      for e in prof.key_averages()
-                      if e.device_type == DeviceType.CUDA
+                      for e in events if e.device_type == DeviceType.CUDA
                       and not e.key.startswith("limo.")],
                      key=lambda r: -r[2])
     busy = sum(r[2] for r in kernels)
     OUT.mkdir(exist_ok=True)
-    (OUT / "chip_smoke_profile.txt").write_text(
-        prof.key_averages().table(sort_by="device_time_total", row_limit=40))
+    (OUT / f"chip_smoke_profile_{name.replace(' ', '_')}.txt").write_text(
+        events.table(sort_by="device_time_total", row_limit=40))
     if busy == 0:
         print("device time by kernel: not measured (the profiler saw no "
               "device time)")
-        return {"profile": "not measured", "syncs": dict(syncs)}
-    print(f"one solve under the profiler: wall {wall_ms:.3f} ms, device busy "
+        return None
+    n_ops = sum(r[1] for r in kernels)
+    print(f"{name} under the profiler: wall {wall_ms:.3f} ms, device busy "
           f"{busy:.3f} ms, device idle share {1 - busy / wall_ms:.3f}, "
-          f"{sum(r[1] for r in kernels)} device operations")
-    own = {name: [{"count": c, "ms": ms} for key, c, ms in kernels
-                  if SYMBOL[name] in key] for name in ("assemble_obs",
-                                                       "cost_obs")}
+          f"{n_ops} device operations" + (f" ({n_ops / per:.1f} per frame)"
+                                          if per > 1 else ""))
+    own = {k: [{"count": c, "ms": ms} for key, c, ms in kernels
+               if SYMBOL[k] in key] for k in ("assemble_obs", "cost_obs")}
     print(f"the two kernels in this trace: {own}")
     # each range appears twice: on the host (its host time and the device
     # time of the operations it launched) and as a device-side annotation
-    layers = sorted([(e.key, e.count, e.cpu_time_total / 1e3,
-                      e.device_time_total / 1e3)
-                     for e in prof.key_averages()
-                     if e.key.startswith("limo.")
+    layers = sorted([(e.key, e.count, e.cpu_time_total / 1e3 / per,
+                      e.device_time_total / 1e3 / per)
+                     for e in events if e.key.startswith("limo.")
                      and e.device_type != DeviceType.CUDA],
                     key=lambda r: -r[2])
-    print("  host ms (incl. nested) | device ms | calls | layer")
+    unit = " per frame" if per > 1 else ""
+    print(f"  host ms{unit} (incl. nested) | device ms{unit} | calls | layer")
     for key, count, host, dev in layers:
         print(f"  {host:10.3f} | {dev:9.4f} | {count:5d} | {key}")
     print("  device ms | count | top device operations")
     for key, count, ms in kernels[:12]:
         print(f"  {ms:9.4f} | {count:5d} | {key[:90]}")
     return {"wall_ms": wall_ms, "busy_ms": busy,
-            "idle_share": 1 - busy / wall_ms, "syncs": dict(syncs),
-            "kernels_in_trace": own,
+            "idle_share": 1 - busy / wall_ms, "device_ops": n_ops,
+            "per": per, "kernels_in_trace": own,
             "layers": [{"name": k, "count": c, "host_ms": h, "device_ms": d}
                        for k, c, h, d in layers],
             "top": [{"name": k[:120], "count": c, "ms": m}
                     for k, c, m in kernels[:12]]}
+
+
+def where_time_goes(problem):
+    """Phase 5: device time by kernel over one solve, and the host syncs
+    PyTorch reports for one solve."""
+    w, sel, rig, cfg = problem
+    torch.cuda.synchronize()
+    with counting_syncs() as syncs:
+        solve_trimmed(w, sel, rig, cfg)
+    print(f"synchronizing operations in one solve (sync debug mode): "
+          f"{sum(syncs.values())}, by caller: {dict(syncs.most_common())}")
+    _, prof, wall_ms = profiled(lambda: solve_trimmed(w, sel, rig, cfg))
+    summary = trace_summary(prof, wall_ms, "solve")
+    return {"profile": summary or "not measured", "syncs": dict(syncs)}
+
+
+@contextlib.contextmanager
+def recording_solves():
+    """Record every solve the scan step attempts: yields a list that gets
+    (window, selection, (window, selection, SolveInfo)) per solve."""
+    calls, inner = [], so.solve_trimmed
+
+    def recorded(w, sel, rig, cfg):
+        out = inner(w, sel, rig, cfg)
+        calls.append((w, sel, out))
+        return out
+
+    so.solve_trimmed = recorded
+    try:
+        yield calls
+    finally:
+        so.solve_trimmed = inner
+
+
+def drive_frames(step, st, xs, frames, timed=False):
+    """Run ``step`` over ``frames`` of the channels ``xs``; returns (final
+    state, stacked FrameOut, per-frame ms or None). Timed frames end in a
+    synchronize, so each time is the frame's wall time."""
+    outs, ms = [], []
+    for i in frames:
+        t0 = time.perf_counter()
+        st, out = step(st, tuple(x[i] for x in xs))
+        if timed:
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        outs.append(out)
+    return st, so.FrameOut(*[torch.stack(f) for f in zip(*outs)]), \
+        (ms if timed else None)
+
+
+def drive_counts(out):
+    return {"keyframes": int(out.is_keyframe.sum()),
+            "attempted": int((out.cost != 0).sum()),
+            "accepted": int(out.solved.sum()), "po_ok": int(out.po_ok.sum())}
+
+
+def to_cpu_f64(t):
+    t = t.detach().cpu()
+    return t.double() if t.is_floating_point() else t
+
+
+def against_f64(calls, rig, cfg):
+    """Each attempted solve against the port's f64 solve of the same input
+    on the CPU; gates the initial and final costs (SCAN_* tolerances)."""
+    rig64 = CameraRig(*[to_cpu_f64(x) for x in rig])
+    rows = []
+    print("  solve | card f32: cost0 -> cost, iterations, trimmed | CPU f64: "
+          "cost0 -> cost, iterations, trimmed | rel gap: cost0, after the "
+          "first LM iteration, final")
+    for j, (w, sel, (_, _, info)) in enumerate(calls):
+        w64 = type(w)(*[to_cpu_f64(x) for x in w])
+        sel64 = type(sel)(*[to_cpu_f64(x) for x in sel])
+        _, _, ref = solve_trimmed(w64, sel64, rig64, cfg)
+        c0, c1 = float(info.initial_cost), float(info.final_cost)
+        r0, r1 = float(ref.initial_cost), float(ref.final_cost)
+        s1, q1 = float(info.cost_trace[0]), float(ref.cost_trace[0])
+        gap0, gap_step, gap1 = (abs(c0 - r0) / r0, abs(s1 - q1) / q1,
+                                abs(c1 - r1) / r1)
+        rows.append({"initial_cost": c0, "final_cost": c1,
+                     "iterations": info.n_iterations,
+                     "trimmed": int(info.n_trimmed), "f64_initial_cost": r0,
+                     "f64_final_cost": r1, "f64_iterations": ref.n_iterations,
+                     "f64_trimmed": int(ref.n_trimmed), "rel_gap_initial": gap0,
+                     "rel_gap_first_step": gap_step, "rel_gap_final": gap1})
+        print(f"  {j:5d} | {c0:.4f} -> {c1:.4f}, {info.n_iterations}, "
+              f"{int(info.n_trimmed)} | {r0:.4f} -> {r1:.4f}, "
+              f"{ref.n_iterations}, {int(ref.n_trimmed)} | {gap0:.2e}, "
+              f"{gap_step:.2e}, {gap1:.2e}")
+        check(gap0 <= SCAN_INITIAL_RTOL,
+              f"solve {j}: initial cost {c0} vs f64 {r0} (rel {gap0:.2e})")
+        check(np.isfinite(c1) and c1 < c0
+              and r1 / SCAN_FINAL_FACTOR <= c1 <= r1 * SCAN_FINAL_FACTOR,
+              f"solve {j}: final cost {c1} vs f64 {r1} (initial {c0})")
+    return rows
+
+
+def states_equal(a, b):
+    return all(torch.equal(x, y) for x, y in zip(a.window, b.window)) and \
+        all(torch.equal(x, y) for x, y in zip(a[1:], b[1:]))
+
+
+def scan_phase(device, card, errs):
+    """Phase 6: the scan drive at full width. Returns (scan launches, the
+    updated kernel errors, the phase's record)."""
+    stamps, uvd, valid, rig, cfg, world = scan_drive(device=device)
+    F = len(stamps)
+    plan = ba_core.assembly_plan(torch.float32, device, cfg)
+    print(f"assembly plan: {plan}; {F} frames, capacity "
+          f"{cfg.capacity.max_keyframes} x {cfg.capacity.max_landmarks} x "
+          f"{cfg.capacity.max_cameras}, float32")
+    check(plan.startswith("cuda["), f"plan {plan} is not the kernel path")
+    xs = so.frame_arrays(stamps, uvd, valid, cfg, device=device)
+
+    # pass 1: the timed drive, launches counted from zero
+    st0 = so.init_state(cfg.capacity, torch.float32, cfg.prior.default_speed,
+                        device)
+    step = so.make_scan_step(rig, cfg)
+    torch.cuda.synchronize()
+    for k in ca.launches:
+        ca.launches[k] = 0
+    with recording_solves() as calls:
+        st1, out1, frame_ms = drive_frames(step, st0, xs, range(F),
+                                           timed=True)
+    launches = dict(ca.launches)
+    infos = step.stats.solves
+    n_it = sum(i.n_iterations for i in infos)
+    n_rounds = sum(i.n_rounds for i in infos)
+    counts = drive_counts(out1)
+    print(f"launches in the drive: {launches} ({len(infos)} attempted "
+          f"solves, LM iterations {n_it}, trim rounds {n_rounds})")
+    check(all(launches[k] > 0 for k in launches), f"launches {launches}")
+    check(launches["assemble_obs"] == n_it, f"launches {launches}")
+    check(launches["cost_obs"] == len(infos) + n_it + n_rounds,
+          f"launches {launches}")
+    check(counts["attempted"] == len(infos), f"{counts} vs {len(infos)}")
+    ate = ate_rmse(world.kitti_gt(), so.poses_kitti(out1))
+    solve_ms = [m for m, s in zip(frame_ms, out1.cost != 0) if s]
+    other_ms = [m for m, s in zip(frame_ms, out1.cost != 0) if not s]
+    syncs_per_frame = step.stats.host_syncs / F
+    print(f"{card}: ms per frame median {statistics.median(frame_ms):.3f} "
+          f"(frames with a solve {statistics.median(solve_ms):.3f} over "
+          f"{len(solve_ms)}, without {statistics.median(other_ms):.3f} over "
+          f"{len(other_ms)}); drive {sum(frame_ms):.1f} ms; host syncs per "
+          f"frame {syncs_per_frame:.2f} ({step.stats.host_syncs} in {F} "
+          f"frames); launches per frame "
+          f"{launches['assemble_obs'] / F:.2f} / {launches['cost_obs'] / F:.2f}")
+    print(f"counts {counts}, ATE {ate:.4f} m (reference package: {REF_SCAN})")
+    check(all(bool(torch.isfinite(f).all()) for f in
+              (out1.pose, out1.refined, out1.cost)), "non-finite FrameOut")
+    check(tuple(out1.pose.shape) == (F, 7), f"pose shape {out1.pose.shape}")
+    check(counts["keyframes"] == REF_SCAN["keyframes"]
+          and counts["attempted"] == REF_SCAN["attempted"],
+          f"counts {counts} vs the reference's {REF_SCAN}")
+
+    # the kernels on the windows the scan step handed to its first solves
+    scan_windows = [(f"scan solve {j} (frame window)", (w, sel, rig, cfg))
+                    for j, (w, sel, _) in enumerate(calls[:N_SCAN_CHECK])]
+    errs = check_windows(scan_windows, errs)
+
+    print("attempted solves against the port's f64 solve on the CPU:")
+    solves = against_f64(calls, rig, cfg)
+
+    # pass 2: run_sequence, bit-identical to pass 1
+    st2, out2 = so.run_sequence(stamps, uvd, valid, rig, cfg, device=device)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(out1, out2)),
+          "two passes of the drive differ (FrameOut)")
+    check(states_equal(st1, st2), "two passes of the drive differ (state)")
+    print("second pass (run_sequence): FrameOut and final ScanState "
+          "bit-identical")
+
+    # where the time goes: the first frames under the profiler
+    n_prof = min(SCAN_PROFILE_FRAMES, F)
+    step3 = so.make_scan_step(rig, cfg)
+    (st3, out3, _), prof, wall_ms = profiled(
+        lambda: drive_frames(step3, st0, xs, range(n_prof)))
+    check(all(torch.equal(a, b[:n_prof]) for a, b in zip(out3, out1)),
+          "the profiled frames differ from pass 1")
+    trace = trace_summary(prof, wall_ms, f"scan frames 0-{n_prof - 1}",
+                          per=n_prof)
+    print(f"  ({len(step3.stats.solves)} attempted solves in those frames)")
+
+    mono = mono_accepted(device)
+    return launches, errs, {
+        "card": card, "frames": F, "counts": counts, "ate_m": ate,
+        "reference": REF_SCAN, "ms_per_frame": statistics.median(frame_ms),
+        "ms_per_frame_solve": statistics.median(solve_ms),
+        "ms_per_frame_no_solve": statistics.median(other_ms),
+        "frame_ms": frame_ms, "host_syncs_per_frame": syncs_per_frame,
+        "launches": launches, "solves": solves,
+        "profile": trace or "not measured",
+        "profiled_solves": len(step3.stats.solves), "mono": mono}
+
+
+def mono_accepted(device):
+    """The same world without depth, with external priors, for MONO_FRAMES
+    frames: at least one solve accepted, and it moves the window. The host
+    syncs of the drive are counted in sync debug mode."""
+    stamps, uvd, valid, rig, cfg, world = scan_drive(with_depth=False,
+                                                     device=device)
+    rng = np.random.default_rng(9)
+    priors = np.asarray(world.poses_veh).copy()
+    priors[:, 4:] += rng.normal(0, 0.05, priors[:, 4:].shape)
+    F = MONO_FRAMES
+    xs = so.frame_arrays(stamps[:F], uvd[:F], valid[:F], cfg,
+                         priors=priors[:F], device=device)
+    st = so.init_state(cfg.capacity, torch.float32, cfg.prior.default_speed,
+                       device)
+    step = so.make_scan_step(rig, cfg)
+    outs, after = [], []
+    with recording_solves() as calls, counting_syncs() as syncs:
+        for i in range(F):
+            after.append((len(calls), st.window.poses))
+            st, out = step(st, tuple(x[i] for x in xs))
+            after[-1] = (after[-1][0], st.window.poses)
+            outs.append(out)
+    out = so.FrameOut(*[torch.stack(f) for f in zip(*outs)])
+    moved = []
+    for (n0, poses), solved in zip(after, out.solved.tolist()):
+        if solved:
+            w_in, _, (w_out, _, _) = calls[n0]
+            moved.append(torch.equal(poses, w_out.poses)
+                         and not torch.equal(w_out.poses, w_in.poses))
+    counts = drive_counts(out)
+    ate = ate_rmse(world.kitti_gt()[:F], so.poses_kitti(out))
+    own = sum(syncs.values())
+    print(f"mono + external priors, {F} frames: {counts}, ATE {ate:.4f} m "
+          f"(reference package: {REF_MONO}); accepted solves whose result "
+          f"replaced the window: {sum(moved)} of {len(moved)}; synchronizing "
+          f"operations (sync debug mode) {own}, the step's own count "
+          f"{step.stats.host_syncs}; by caller {dict(syncs.most_common(8))}")
+    check(counts["accepted"] >= 1 and moved and all(moved),
+          f"no accepted solve moved the window: {counts}, {moved}")
+    return {"counts": counts, "ate_m": ate, "reference": REF_MONO,
+            "moved": sum(moved), "syncs": dict(syncs),
+            "step_host_syncs": step.stats.host_syncs}
 
 
 def main():
@@ -408,7 +698,7 @@ def main():
 
 
 def run(device, card):
-    """Phases 2-5 on ``device``; prints the result lines."""
+    """Phases 2-6 on ``device``; prints the result lines."""
     phase("build")
     b = ca.build()
     print(f"built {b.path.name} in {b.seconds:.1f} s")
@@ -427,10 +717,18 @@ def run(device, card):
     phase("where the time goes")
     prof = where_time_goes(problem)
 
+    phase("scan drive at full width: 20x1536, 60 frames, f32")
+    errs = {k: (r["max_abs_err"], r["max_rel_err"]) for k, r in records.items()}
+    scan_launches, errs, scan = scan_phase(device, card, errs)
+    for name, r in records.items():
+        r["max_abs_err"], r["max_rel_err"] = errs[name]
+        r["scan_launches"] = scan_launches[name]
+        r["scan_launches_per_frame"] = scan_launches[name] / scan["frames"]
+
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "kernels": list(records.values()), "solve": solve,
-         "profile": prof}, indent=1))
+         "profile": prof, "scan": scan}, indent=1))
     print(card)
     print(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {

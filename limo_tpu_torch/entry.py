@@ -13,6 +13,11 @@ held against their plain versions: the bench window and a 2-camera window
 (:func:`two_camera_window`), each with and without lidar depth, and a
 window of 40 keyframe slots whose keyframes in use sit in slots 28-39
 (:func:`rolled_window`).
+
+:func:`scan_drive` builds the scan-odometry drive at full width: the
+default ``LimoConfig()`` capacity (20 keyframe slots × 1536 landmark slots
+× 1 camera) on a synthetic 10 m/s KITTI-like world, for
+:func:`limo_tpu_torch.pipeline.scan_odometry.run_sequence`.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ import torch
 from .config import CapacityConfig, LimoConfig
 from .geometry import pose as pose_ops
 from .geometry.camera import CameraRig
+from .pipeline.synthetic import dense_tracks, make_world
 from .state import Selection, Window, empty_window
 
 
@@ -161,3 +167,21 @@ def kernel_check_windows(device="cuda"):
         w, sel, rig = two_camera_window(with_depth=depth, device=device)
         yield f"C=2 L=1000 depth={depth}", (w, sel, rig, LimoConfig())
     yield "K=40 (slots 28-39) L=999", rolled_window(device)
+
+
+def scan_drive(num_frames=60, seed=3, with_depth=True, dtype=torch.float32,
+               device="cuda"):
+    """The full-width scan drive: ``make_world(num_frames, seed=seed)`` with
+    its defaults (600 landmarks, 200 ground points, 10 m/s, 10 Hz), tracked
+    into ``dense_tracks(world, 1536, with_depth, seed=seed + 1)`` under
+    ``LimoConfig()``. Returns (stamps [F], uvd [F,1536,3], valid [F,1536] as
+    numpy, rig on ``device``, cfg, world)."""
+    world = make_world(num_frames, seed=seed)
+    cfg = LimoConfig()
+    stamps, uvd, valid = dense_tracks(world, cfg.capacity.max_landmarks,
+                                      with_depth=with_depth, seed=seed + 1)
+    on = lambda a: torch.as_tensor(np.asarray(a)[None], dtype=dtype,
+                                   device=device)
+    rig = CameraRig(focal=on(world.focal), principal=on(world.principal),
+                    T_cam_veh=on(world.T_cam_veh))
+    return stamps, uvd, valid, rig, cfg, world

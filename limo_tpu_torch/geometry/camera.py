@@ -65,3 +65,13 @@ def backproject(uv, depth, focal, principal):
     xy = (uv - principal) / focal[..., None]
     z = depth[..., None]
     return torch.cat([xy * z, z], dim=-1)
+
+
+def viewing_ray(uv, focal, principal):
+    """Unit viewing ray in camera frame for pixel(s) uv.
+
+    Mirrors ``Camera::getViewingRay`` (``definitions.cpp:44-53``). The norm
+    is the square root of the sum of squares, as the reference package
+    forms it."""
+    r = backproject(uv, torch.ones_like(uv[..., 0]), focal, principal)
+    return r / torch.sqrt(torch.sum(r * r, dim=-1, keepdim=True))

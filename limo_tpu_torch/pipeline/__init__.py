@@ -1,0 +1,9 @@
+"""The scan-odometry step on track tensors, and the numpy drive and metric
+instruments it is run and scored with."""
+
+from .scan_odometry import (FrameOut, ScanState, ScanStats, frame_arrays,
+                            init_state, make_scan_step, poses_kitti,
+                            run_sequence)
+
+__all__ = ["FrameOut", "ScanState", "ScanStats", "frame_arrays", "init_state",
+           "make_scan_step", "poses_kitti", "run_sequence"]

@@ -144,6 +144,22 @@ def window_to_numpy(w: Window) -> Window:
     return Window(*[x.detach().cpu().numpy() for x in w])
 
 
+def scan_state_from_numpy(st, device="cuda"):
+    """ScanState from the reference package's ScanState (numpy or
+    array-likes), window included."""
+    from .pipeline.scan_odometry import ScanState
+    return ScanState(window=window_from_numpy(st.window, device),
+                     **{f: torch.as_tensor(np.array(getattr(st, f)),
+                                           device=device)
+                        for f in ScanState._fields[1:]})
+
+
+def scan_state_to_numpy(st):
+    """Device → host copy: a ScanState of numpy arrays."""
+    return type(st)(window_to_numpy(st.window),
+                    *[x.detach().cpu().numpy() for x in st[1:]])
+
+
 def config_from_dict(d: dict) -> LimoConfig:
     """LimoConfig from ``dataclasses.asdict`` of the reference's config
     (field names are shared; lists become the tuples the dataclasses hold)."""

@@ -27,7 +27,8 @@ import torch
 
 from limo_tpu_torch.config import LimoConfig
 from limo_tpu_torch.entry import kernel_check_windows, make_problem, \
-    rolled_window, two_camera_window
+    rolled_window, scan_drive, two_camera_window
+from limo_tpu_torch.pipeline import scan_odometry as so
 from limo_tpu_torch.solver import ba_core as t_ba
 from limo_tpu_torch.solver import cuda_assemble as ca
 from limo_tpu_torch.solver import solve_trimmed as t_solve_trimmed
@@ -300,3 +301,17 @@ def test_solve_trimmed_on_card(cuda):
         == 1 + info.n_iterations + info.n_rounds
     assert info.n_rounds == 1 and int(info.n_trimmed) == 77
     assert abs(float(info.final_cost) - 1612.640648) / 1612.640648 < 1e-4
+
+
+@pytest.mark.gpu
+def test_scan_drive_repeats_on_card(cuda):
+    """Ten frames of the full-width scan drive (20 x 1536 x 1, f32) on the
+    card, twice: the same keyframes, solves, pose-only decisions and
+    landmark counts, and the same poses bit for bit."""
+    stamps, uvd, valid, rig, cfg, _ = scan_drive(num_frames=10, device=cuda)
+    runs = [so.run_sequence(stamps, uvd, valid, rig, cfg, device=cuda)[1]
+            for _ in range(2)]
+    for field in ("is_keyframe", "solved", "po_ok", "n_usable", "n_rate",
+                  "pose", "cost"):
+        assert torch.equal(getattr(runs[0], field), getattr(runs[1], field))
+    assert int(runs[0].is_keyframe.sum()) >= 2
