@@ -30,12 +30,30 @@ Phases (any failure ends the run with a non-zero exit, and no result):
    20 x 1536 x 1, 60 frames of a 10 m/s drive with lidar depth, f32):
    the scan step through both kernels, frame by frame, with the launch
    identity summed over its attempted solves; the kernels against their
-   plain versions on the windows of its first three solves; every solve
-   against the port's f64 solve of the same input on the CPU; the counts
-   against the reference package's (13 keyframes, 11 attempted solves);
-   a second pass bit-identical; 20 frames under torch.profiler; and the
-   same world without depth but with external priors for 30 frames, which
-   must accept a solve that moves the window.
+   plain versions on the windows of its first three solves; its first five
+   solves against the port's f64 solve of the same input on the CPU; the
+   counts against the reference package's (13 keyframes, 11 attempted
+   solves); 10 frames under torch.profiler, bit-identical to the drive's;
+   and the same world without depth but with external priors for 30
+   frames, which must accept a solve that moves the window;
+7. the fused drive at full width (``entry.fused_drive()``: the reference
+   package's flagship fused configuration, 20 x 1536 x 1 with 384
+   features, lidar depth, groundplane and labels, f32, on a 200-frame
+   rendered world with a standstill and two turns): the stages of the
+   first three frames (detect, labels, lidar depth and plane, guided match,
+   slot assignment, per-slot channels) against the port's f64 run of each
+   stage on the same inputs on the CPU; ``run_fused`` with chunks of 64,
+   timed frame by frame, with the launch identity over its solves, the
+   kernels against their plain versions on the windows of its first three
+   solves and its first five solves against the port's f64 solves on the
+   CPU; its counts, track statistics and ATE against the reference
+   package's run of the same drive; a second pass bit-identical, with its
+   host syncs counted; the first 44 frames in chunks of 16 against one
+   chunk; 20 frames under torch.profiler. To keep the script near half
+   its 1200 s limit, phase 6 runs its drive once (its second pass through
+   ``run_sequence`` was cut; phase 7's second pass holds the same step to
+   bit-identical repeats), solves only its first five windows in f64 and
+   profiles 10 frames, not 20.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. The profile table and a JSON record of
@@ -56,13 +74,18 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from limo_tpu_torch.entry import kernel_check_windows, make_problem, \
-    scan_drive
+from limo_tpu_torch.entry import fused_drive, kernel_check_windows, \
+    make_problem, scan_drive
+from limo_tpu_torch.frontend import tracker as trk
+from limo_tpu_torch.frontend.semantics import dilate_labels, sample_labels
 from limo_tpu_torch.geometry.camera import CameraRig
+from limo_tpu_torch.pipeline import fused
 from limo_tpu_torch.pipeline import scan_odometry as so
-from limo_tpu_torch.pipeline.metrics import ate_rmse
+from limo_tpu_torch.pipeline.full import frontend_depth_plane
+from limo_tpu_torch.pipeline.metrics import ate_rmse, kitti_drift
 from limo_tpu_torch.solver import ba_core, cuda_assemble as ca
 from limo_tpu_torch.solver import solve_trimmed
+from limo_tpu_torch.window_manager import DEFAULT_OUTLIER_LABELS
 
 # the reference package's solve of this fixture, JAX on the CPU in f64
 REF_FINAL_COST = 1612.640648
@@ -103,7 +126,54 @@ REF_MONO = {"keyframes": 15, "attempted": 7, "accepted": 7, "ate_m": 0.246}
 SCAN_INITIAL_RTOL = 1e-4
 SCAN_FINAL_FACTOR = 4.0
 N_SCAN_CHECK = 3
-SCAN_PROFILE_FRAMES = 20
+# phase 6 solves its first N_SCAN_F64 windows again in f64 on the CPU (all
+# 11 until the fused phase came; cut to hold the script near half its limit)
+N_SCAN_F64 = 5
+# phase 6 profiles its first 10 frames (20 until the fused phase came)
+SCAN_PROFILE_FRAMES = 10
+# phase 7: the reference package's run_fused on entry.fused_drive() (JAX
+# f32 on the CPU; python scripts/fused_drive_cpu.py --package reference)
+REF_FUSED = {"keyframes": 55, "attempted": 41, "accepted": 23, "po_ok": 173,
+             "min_n_tracks": 296, "min_n_matches": 149, "min_n_depth": 215,
+             "ate_m": 2.2036, "drift_t_percent": 5.092,
+             "drift_r_deg_per_m": 0.03856, "drift_segments": 14}
+FUSED_CHUNK = 64
+FUSED_PARITY_FRAMES = 3
+FUSED_CHUNK_FRAMES = 44
+FUSED_F64_SOLVES = 5
+FUSED_PROFILE_FRAMES = 20
+# stage parity of the first frames, card f32 against the port's f64 run of
+# the same stage on the same inputs on the CPU (PERF.md): discrete
+# outputs may differ only where f32 rounding decides a near-tie, at most
+# FUSED_STAGE_FLIPS per frame and stage, each printed; continuous outputs
+# within these bounds
+FUSED_STAGE_FLIPS = 3
+FUSED_STAGE_UV_PX = 1e-3
+FUSED_STAGE_DESC = 1e-5
+FUSED_STAGE_RESPONSE_REL = 1e-3
+FUSED_STAGE_DEPTH_REL = 1e-3
+FUSED_STAGE_NORMAL = 1e-5
+# the fused drive's solves run out their LM budget on ill-posed windows,
+# where f32 rounding steers LM: the final costs of the port's and the
+# reference package's f32 solves of one window lie up to 1.5x apart, and
+# the port's f32 against its f64 up to 3.5x (CPU, PERF.md)
+FUSED_FINAL_FACTOR = 10.0
+# the card's drive against REF_FUSED: each count within [lo, hi] times the
+# reference's. Three CPU runs of the drive (the reference in f32, the port
+# in f32 and in f64) agree on every decision until the first ill-posed
+# solve whose f32 result parts (frame 73 or 78), then spread: keyframes
+# 51-67, attempted 40-51, accepted 23-26, po_ok 157-182, ATE 1.70-17.05 m
+# (PERF.md). The band holds that spread with a margin.
+FUSED_BAND = {"keyframes": (0.75, 1.35), "attempted": (0.75, 1.35),
+              "accepted": (0.6, 1.5), "po_ok": (0.8, 1.1),
+              "ate_m": (0.0, 10.0)}
+# test_fused.py's structure gates, over frames 5 on: tracks, matches and
+# depths per frame, keyframes, accepted solves. The tracks' gate is 40, not
+# 50: the port's f32 CPU run, a correct run that parts from the others at
+# frame 78, holds 47 tracks at frame 95, where the standstill's extra
+# keyframes fill the landmark slots
+FUSED_STRUCTURE = {"min_n_tracks": 40, "min_n_matches": 30,
+                   "min_n_depth": 20, "keyframes": 7, "accepted": 0}
 OUT = Path("chiprun_out")
 # each kernel's symbol in the profiler's trace
 SYMBOL = {"assemble_obs": "assemble_obs_kernel", "cost_obs": "cost_obs_kernel",
@@ -115,8 +185,11 @@ def check(ok, msg):
         raise RuntimeError(f"chip_smoke: {msg}")
 
 
+T0 = time.perf_counter()
+
+
 def phase(name):
-    print(f"\n== {name}", flush=True)
+    print(f"\n== {name} (at {time.perf_counter() - T0:.1f} s)", flush=True)
 
 
 def card_line() -> str:
@@ -216,20 +289,77 @@ def bound(name, ops, outs, K, C):
                                  "operations"), nbytes
 
 
+def against_plain(ops, sizes):
+    """Both kernels against their plain versions on one window's operands.
+    Where f32 rounding alone stays inside the kernels' tolerance (the plain
+    f32 assembly within half of it of the plain f64 one, on the same
+    operands), kernel and plain f32 must agree within it
+    (``ca.compare_with_plain``). Where it does not (many keyframes, near
+    landmarks: some blocks are sums of far larger terms), each kernel
+    output must lie within the tolerance plus twice the plain f32
+    version's largest error in that field of the plain f64 value, and the
+    two kernels' costs must be equal. Returns ({kernel: (max abs, max rel)
+    error against the plain f32 version}, the plain f32 version's largest
+    error over the tolerance)."""
+    ops64 = [t.double() for t in ops]
+    plain = {"assemble_obs": (ca.assemble_obs_plain(*ops, **sizes),
+                              ca.assemble_obs_plain(*ops64, **sizes)),
+             "cost_obs": (ca.cost_obs_plain(*ops, **sizes),
+                          ca.cost_obs_plain(*ops64, **sizes))}
+    fields = lambda name, out: (
+        [(f, getattr(out, f)) for f in out._fields] if name == "assemble_obs"
+        else [("cost_obs", out)])
+
+    def over(a, x, field):
+        rtol, atol = ca.TOLERANCES[field]
+        return float(((a.double() - x).abs() / (atol + rtol * x.abs())).max())
+    ratio = max(over(a, x, f) for name, (p32, p64) in plain.items()
+                for (f, a), (_, x) in zip(fields(name, p32),
+                                          fields(name, p64)))
+    if ratio < 0.5:
+        return ca.compare_with_plain(ops, sizes), ratio
+    kern = {"assemble_obs": ca.assemble_obs(*ops, **sizes),
+            "cost_obs": ca.cost_obs(*ops, **sizes)}
+    check(torch.equal(kern["cost_obs"], kern["assemble_obs"].cost),
+          "cost kernel != assembly kernel cost")
+    errs = {}
+    for name, out in kern.items():
+        p32, p64 = plain[name]
+        abs_err = rel_err = 0.0
+        for (f, k), (_, a), (_, x) in zip(fields(name, out),
+                                          fields(name, p32),
+                                          fields(name, p64)):
+            rtol, atol = ca.TOLERANCES[f]
+            bound = atol + rtol * x.abs() + 2 * (a.double() - x).abs().max()
+            gap = (k.double() - x).abs()
+            check(bool((gap <= bound).all()),
+                  f"{name} {f}: {float(gap.max())} from the f64 plain value "
+                  f"(bound {float(bound.max())})")
+            err = float((k - a).abs().max())
+            abs_err = max(abs_err, err)
+            rel_err = max(rel_err, err / max(float(a.abs().max()), 1e-30))
+        errs[name] = (abs_err, rel_err)
+    return errs, ratio
+
+
 def check_windows(windows, errs):
     """Each kernel against its plain version on each (name, (window, sel,
-    rig, cfg)), and N_REPEAT bit-identical launches; returns ``errs``
-    (kernel -> (max abs, max rel) error) updated."""
+    rig, cfg)) (``against_plain``), and N_REPEAT bit-identical launches;
+    returns ``errs`` (kernel -> (max abs, max rel) error against the plain
+    f32 version) updated."""
     for name, (w, sel, rig, cfg) in windows:
         ops, sizes = ba_core._obs_kernel_args(w, sel, rig, cfg)
-        case = ca.compare_with_plain(ops, sizes)
+        case, ratio = against_plain(ops, sizes)
         torch.cuda.synchronize()
         errs = {k: tuple(map(max, errs[k], case[k])) for k in errs}
         for kernel in errs:
             check_repeats(kernel, ops, sizes)
-        print(f"{name}: both kernels agree with their plain versions; "
-              f"cost kernel == assembly kernel cost; {N_REPEAT} launches of "
-              f"each bit-identical")
+        how = ("agree with their plain versions" if ratio < 0.5 else
+               "lie as close to the plain f64 values as the plain f32 "
+               "versions, within the tolerance")
+        print(f"{name}: both kernels {how} (plain f32 rounding / "
+              f"tolerance {ratio:.3g}); cost kernel == assembly kernel cost; "
+              f"{N_REPEAT} launches of each bit-identical")
     return errs
 
 
@@ -402,18 +532,36 @@ def profiled(fn):
 def trace_summary(prof, wall_ms, name, per=1):
     """Device operations, busy time and idle share from a trace, the two
     kernels' own launches, and host/device ms per ``limo.*`` range, each
-    divided by ``per``; printed and returned (None if the trace holds no
-    device time)."""
+    divided by ``per``; printed, written under chiprun_out/ and returned
+    (None if the trace holds no device time). Sums the trace's events in
+    one pass: ``key_averages()`` recomputes every operation's device time
+    through its children and takes minutes on a fused drive's trace."""
     from torch.autograd import DeviceType
-    events = prof.key_averages()
-    kernels = sorted([(e.key, e.count, e.device_time_total / 1e3)
-                      for e in events if e.device_type == DeviceType.CUDA
-                      and not e.key.startswith("limo.")],
+    ops, ranges = {}, {}
+    for e in prof.events():
+        key = e.name
+        if e.device_type == DeviceType.CUDA:
+            if not key.startswith("limo."):  # skip ranges' device annotations
+                c, ms = ops.get(key, (0, 0.0))
+                ops[key] = (c + 1, ms + e.device_time_total / 1e3)
+        elif key.startswith("limo."):
+            c, host, dev = ranges.get(key, (0, 0.0, 0.0))
+            ranges[key] = (c + 1, host + e.cpu_time_total / 1e3,
+                           dev + e.device_time_total / 1e3)
+    kernels = sorted([(k, c, ms) for k, (c, ms) in ops.items()],
                      key=lambda r: -r[2])
+    # each range's host time (incl. nested) and the device time of the
+    # operations it launched
+    layers = sorted([(k, c, h / per, d / per)
+                     for k, (c, h, d) in ranges.items()], key=lambda r: -r[2])
     busy = sum(r[2] for r in kernels)
     OUT.mkdir(exist_ok=True)
     (OUT / f"chip_smoke_profile_{name.replace(' ', '_')}.txt").write_text(
-        events.table(sort_by="device_time_total", row_limit=40))
+        "device ms | count | device operation\n" + "".join(
+            f"{ms:10.4f} | {c:6d} | {k}\n" for k, c, ms in kernels[:40])
+        + "host ms | device ms | calls | range\n" + "".join(
+            f"{h * per:10.3f} | {d * per:9.4f} | {c:5d} | {k}\n"
+            for k, c, h, d in layers))
     if busy == 0:
         print("device time by kernel: not measured (the profiler saw no "
               "device time)")
@@ -426,13 +574,6 @@ def trace_summary(prof, wall_ms, name, per=1):
     own = {k: [{"count": c, "ms": ms} for key, c, ms in kernels
                if SYMBOL[k] in key] for k in ("assemble_obs", "cost_obs")}
     print(f"the two kernels in this trace: {own}")
-    # each range appears twice: on the host (its host time and the device
-    # time of the operations it launched) and as a device-side annotation
-    layers = sorted([(e.key, e.count, e.cpu_time_total / 1e3 / per,
-                      e.device_time_total / 1e3 / per)
-                     for e in events if e.key.startswith("limo.")
-                     and e.device_type != DeviceType.CUDA],
-                    key=lambda r: -r[2])
     unit = " per frame" if per > 1 else ""
     print(f"  host ms{unit} (incl. nested) | device ms{unit} | calls | layer")
     for key, count, host, dev in layers:
@@ -508,9 +649,11 @@ def to_cpu_f64(t):
     return t.double() if t.is_floating_point() else t
 
 
-def against_f64(calls, rig, cfg):
+def against_f64(calls, rig, cfg, final_factor=SCAN_FINAL_FACTOR):
     """Each attempted solve against the port's f64 solve of the same input
-    on the CPU; gates the initial and final costs (SCAN_* tolerances)."""
+    on the CPU; gates the initial cost (SCAN_INITIAL_RTOL) and the final
+    cost (finite, below the initial cost, within ``final_factor`` of the
+    f64 one)."""
     rig64 = CameraRig(*[to_cpu_f64(x) for x in rig])
     rows = []
     print("  solve | card f32: cost0 -> cost, iterations, trimmed | CPU f64: "
@@ -538,7 +681,7 @@ def against_f64(calls, rig, cfg):
         check(gap0 <= SCAN_INITIAL_RTOL,
               f"solve {j}: initial cost {c0} vs f64 {r0} (rel {gap0:.2e})")
         check(np.isfinite(c1) and c1 < c0
-              and r1 / SCAN_FINAL_FACTOR <= c1 <= r1 * SCAN_FINAL_FACTOR,
+              and r1 / final_factor <= c1 <= r1 * final_factor,
               f"solve {j}: final cost {c1} vs f64 {r1} (initial {c0})")
     return rows
 
@@ -568,7 +711,7 @@ def scan_phase(device, card, errs):
     for k in ca.launches:
         ca.launches[k] = 0
     with recording_solves() as calls:
-        st1, out1, frame_ms = drive_frames(step, st0, xs, range(F),
+        _, out1, frame_ms = drive_frames(step, st0, xs, range(F),
                                            timed=True)
     launches = dict(ca.launches)
     infos = step.stats.solves
@@ -606,17 +749,9 @@ def scan_phase(device, card, errs):
                     for j, (w, sel, _) in enumerate(calls[:N_SCAN_CHECK])]
     errs = check_windows(scan_windows, errs)
 
-    print("attempted solves against the port's f64 solve on the CPU:")
-    solves = against_f64(calls, rig, cfg)
-
-    # pass 2: run_sequence, bit-identical to pass 1
-    st2, out2 = so.run_sequence(stamps, uvd, valid, rig, cfg, device=device)
-    torch.cuda.synchronize()
-    check(all(torch.equal(a, b) for a, b in zip(out1, out2)),
-          "two passes of the drive differ (FrameOut)")
-    check(states_equal(st1, st2), "two passes of the drive differ (state)")
-    print("second pass (run_sequence): FrameOut and final ScanState "
-          "bit-identical")
+    print(f"the first {N_SCAN_F64} attempted solves against the port's f64 "
+          f"solve on the CPU:")
+    solves = against_f64(calls[:N_SCAN_F64], rig, cfg)
 
     # where the time goes: the first frames under the profiler
     n_prof = min(SCAN_PROFILE_FRAMES, F)
@@ -685,6 +820,376 @@ def mono_accepted(device):
             "step_host_syncs": step.stats.host_syncs}
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: the fused drive
+# ---------------------------------------------------------------------------
+
+def compare_detect(fc, fh, i):
+    """Frame ``i``'s features on the card against the f64 CPU run: matched
+    by integer pixel; returns (unmatched features, each with its f64
+    response over the frame's k-th response, and the gaps of the matched)."""
+    W = 1 << 16
+    key = lambda f: (torch.floor(f.uv[i, :, 1].double() + 0.5) * W
+                     + torch.floor(f.uv[i, :, 0].double() + 0.5)).long()
+    kc, kh = key(fc).cpu(), key(fh).cpu()
+    vc, vh = fc.valid[i].cpu(), fh.valid[i].cpu()
+    pos_h = {int(k): j for j, k in enumerate(kh) if vh[j]}
+    pos_c = {int(k): j for j, k in enumerate(kc) if vc[j]}
+    kth = float(fh.response[i][vh].min()) if vh.any() else 0.0
+    unmatched = [("card only", int(k), float(fc.response[i, j]) / kth)
+                 for k, j in pos_c.items() if k not in pos_h] + \
+        [("cpu only", int(k), float(fh.response[i, j]) / kth)
+         for k, j in pos_h.items() if k not in pos_c]
+    both = [(pos_c[k], pos_h[k]) for k in pos_c if k in pos_h]
+    jc = torch.tensor([a for a, _ in both], dtype=torch.long)
+    jh = torch.tensor([b for _, b in both], dtype=torch.long)
+    gap = lambda a, b: float((a[i].cpu().double()[jc]
+                              - b[i].cpu().double()[jh]).abs().max())
+    resp = fh.response[i].cpu()[jh].abs().clamp_min(1e-30)
+    return unmatched, {
+        "features": len(pos_c), "matched": len(both),
+        "uv_px": gap(fc.uv, fh.uv), "desc": gap(fc.desc, fh.desc),
+        "response_rel": float(((fc.response[i].cpu().double()[jc]
+                                - fh.response[i].cpu()[jh]).abs()
+                               / resp).max()),
+        "rank_moves": int((jc != jh).sum())}
+
+
+def fused_stage_parity(device, drive):
+    """The stages of the drive's first FUSED_PARITY_FRAMES frames on the
+    card against the port's f64 run of each stage on the same inputs on the
+    CPU (the card's inputs of each stage, cast to f64). Gates at the
+    FUSED_STAGE_* tolerances; returns the phase's record."""
+    stamps, imgs, clouds, labels, rig, cfg, pcfg, world = drive
+    n = FUSED_PARITY_FRAMES
+    tcfg = pcfg.tracker
+    rig_h = CameraRig(*[to_cpu_f64(x) for x in rig])
+    size = world.image_size
+    L = cfg.capacity.max_landmarks
+    _, xs = next(fused.chunks(stamps[:n], imgs[:n], clouds[:n], pcfg,
+                              labels[:n], None, torch.float32, device))
+    xs_h = [to_cpu_f64(x) for x in xs]
+    rec = {"frames": n, "detect": [], "depth": [], "match": []}
+
+    # detect (batched over the frames) and the labels at the card's features
+    inv_gamma = 1.0 / pcfg.gamma
+    fc = trk.detect((xs[1].float() / 255.0) ** inv_gamma, tcfg)
+    fh = trk.detect((xs_h[1].double() / 255.0) ** inv_gamma, tcfg)
+    out_tab = torch.as_tensor(sorted(DEFAULT_OUTLIER_LABELS),
+                              dtype=torch.int32)
+
+    def labels_at(li, uv):
+        li = li.to(torch.int32)
+        return sample_labels(dilate_labels(
+            li, torch.isin(li, out_tab.to(li.device))), uv)
+
+    lab_c = labels_at(xs[4], fc.uv)
+    lab_h = labels_at(xs_h[4], to_cpu_f64(fc.uv))
+    check(torch.equal(lab_c.cpu(), lab_h), "labels differ from the CPU's")
+    for i in range(n):
+        unmatched, gaps = compare_detect(fc, fh, i)
+        rec["detect"].append({"unmatched": unmatched, **gaps})
+        print(f"  frame {i} detect: {gaps['features']} features, "
+              f"{gaps['matched']} at the CPU's pixels ({gaps['rank_moves']} "
+              f"in another rank); max |uv| {gaps['uv_px']:.2e} px, |desc| "
+              f"{gaps['desc']:.2e}, response rel {gaps['response_rel']:.2e}; "
+              f"unmatched (response / k-th): {unmatched}")
+        check(len(unmatched) <= FUSED_STAGE_FLIPS
+              and gaps["uv_px"] <= FUSED_STAGE_UV_PX
+              and gaps["desc"] <= FUSED_STAGE_DESC
+              and gaps["response_rel"] <= FUSED_STAGE_RESPONSE_REL,
+              f"frame {i}: detect outside its tolerances")
+
+    # lidar depth and plane, per frame, at the card's features
+    frames = [[] for _ in range(8)]
+    for i in range(n):
+        dc = frontend_depth_plane(xs[2][i], xs[3][i], rig.T_cam_veh[0],
+                                  fc.uv[i], rig.focal[0], rig.principal[0],
+                                  size, pcfg.lidar, pcfg.use_groundplane,
+                                  tuple(pcfg.gp_band))
+        dh = frontend_depth_plane(xs_h[2][i], xs_h[3][i], rig_h.T_cam_veh[0],
+                                  to_cpu_f64(fc.uv[i]), rig_h.focal[0],
+                                  rig_h.principal[0], size, pcfg.lidar,
+                                  pcfg.use_groundplane, tuple(pcfg.gp_band))
+        d_c, d_h = dc[0].cpu().double(), dh[0]
+        flips = torch.nonzero((d_c > 0) != (d_h > 0))[:, 0].tolist()
+        both = (d_c > 0) & (d_h > 0)
+        d_rel = float(((d_c - d_h).abs() / d_h.abs().clamp_min(1e-9))[both]
+                      .max())
+        p_c, p_h = dc[1].cpu().double(), dh[1]
+        r = {"valid": int((d_h > 0).sum()), "flips": [
+            (j, float(d_c[j]), float(d_h[j])) for j in flips],
+            "depth_rel": d_rel, "normal": float((p_c[:3] - p_h[:3]).abs().max()),
+            "distance_rel": float(abs(p_c[3] - p_h[3]) / abs(p_h[3])),
+            "plane_ok": (bool(dc[2]), bool(dh[2]))}
+        rec["depth"].append(r)
+        print(f"  frame {i} depth: {r['valid']} valid on the CPU, flips "
+              f"(feature, card, CPU) {r['flips']}; max depth rel "
+              f"{d_rel:.2e}; plane |n| {r['normal']:.2e}, d rel "
+              f"{r['distance_rel']:.2e}, ok {r['plane_ok']}")
+        check(len(flips) <= FUSED_STAGE_FLIPS
+              and d_rel <= FUSED_STAGE_DEPTH_REL
+              and r["normal"] <= FUSED_STAGE_NORMAL
+              and r["distance_rel"] <= FUSED_STAGE_DEPTH_REL
+              and r["plane_ok"][0] == r["plane_ok"][1],
+              f"frame {i}: depth or plane outside its tolerances")
+        for k, v in enumerate((xs[0][i], fc.uv[i], fc.desc[i], fc.valid[i],
+                               dc[0], lab_c[i], dc[1], dc[2])):
+            frames[k].append(v)
+
+    # the sequential stages from the card's state: guided match, slots and
+    # per-slot channels (slots and channels from the same inputs: exact)
+    step = fused.make_fused_step(rig, cfg, pcfg)
+    st = fused.init_fused_state(cfg, pcfg, torch.float32, device)
+    for i in range(n):
+        frame = [f[i] for f in frames]
+        st_h = fused.FusedState(so.ScanState(
+            type(st.scan.window)(*[to_cpu_f64(x) for x in st.scan.window]),
+            *[to_cpu_f64(x) for x in st.scan[1:]]),
+            *[to_cpu_f64(x) for x in st[1:]])
+        cur = trk.Features(frame[1], torch.zeros_like(frame[4]), frame[2],
+                           frame[3])
+        cur_h = trk.Features(*[to_cpu_f64(x) for x in cur])
+        m = [trk.match(c, trk.Features(s.prev_uv, c.response, s.prev_desc,
+                                       s.prev_valid), tcfg,
+                       *fused.predict_uv(s, r, tcfg))
+             for c, s, r in ((cur, st, rig), (cur_h, st_h, rig_h))]
+        pi_c, pi_h = m[0].prev_index.cpu(), m[1].prev_index
+        flips = torch.nonzero(pi_c != pi_h)[:, 0].tolist()
+        slot_c = fused._assign_slots(m[0].prev_index, st.slot_of_feat,
+                                     frame[3], st.scan.window.lm_valid)
+        slot_h = fused._assign_slots(pi_c, st_h.slot_of_feat, cur_h.valid,
+                                     st_h.scan.window.lm_valid)
+        ok_c = frame[3] & (slot_c >= 0)
+        uvd_c = torch.cat([frame[1], frame[4][:, None]], -1)
+        ch_c = fused._slot_channels(slot_c, ok_c, uvd_c, frame[5], L)
+        ch_h = fused._slot_channels(slot_h, to_cpu_f64(ok_c),
+                                    to_cpu_f64(uvd_c), frame[5].cpu(), L)
+        same = torch.equal(slot_c.cpu(), slot_h) and all(
+            torch.equal(to_cpu_f64(a), b) for a, b in zip(ch_c, ch_h))
+        rec["match"].append({"matches": int(m[0].n_matches),
+                             "cpu_matches": int(m[1].n_matches),
+                             "flips": [(j, int(pi_c[j]), int(pi_h[j]))
+                                       for j in flips],
+                             "slots_and_channels_equal": same})
+        print(f"  frame {i} match: {int(m[0].n_matches)} matches (CPU "
+              f"{int(m[1].n_matches)}), flips (feature, card, CPU) "
+              f"{rec['match'][-1]['flips']}; slots and per-slot channels "
+              f"equal: {same}")
+        check(len(flips) <= FUSED_STAGE_FLIPS and same,
+              f"frame {i}: match, slots or channels differ")
+        st, _ = step(st, tuple(frame))
+    return rec
+
+
+def timed_fused(runner, st, drive, chunk, device):
+    """``run_fused``'s loop with a synchronize and a clock after each chunk's
+    upload, each chunk's front end and each frame's step. Returns (state,
+    FusedOut, per-frame step ms, per-chunk (frames, upload ms, front-end
+    ms))."""
+    stamps, imgs, clouds, labels, rig, cfg, pcfg, world = drive
+    outs, frame_ms, chunk_ms = [], [], []
+    it = fused.chunks(stamps, imgs, clouds, pcfg, labels, chunk,
+                      torch.float32, device)
+    while True:
+        t0 = time.perf_counter()
+        item = next(it, None)
+        if item is None:
+            break
+        n, xs = item
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        frames = runner.front_end(xs, torch.float32)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        chunk_ms.append((n, (t1 - t0) * 1e3, (t2 - t1) * 1e3))
+        step_outs = []
+        for i in range(len(frames[0])):
+            t0 = time.perf_counter()
+            st, out = runner.step(st, tuple(f[i] for f in frames))
+            torch.cuda.synchronize()
+            if i < n:
+                frame_ms.append((time.perf_counter() - t0) * 1e3)
+            step_outs.append(out)
+        outs.append(fused.FusedOut(*[torch.stack(f)[:n]
+                                     for f in zip(*step_outs)]))
+    return st, fused.FusedOut(*[torch.cat(f) for f in zip(*outs)]), \
+        frame_ms, chunk_ms
+
+
+def fused_counts(out, world):
+    F = out.pose.shape[0]
+    est = fused.poses_kitti(out)
+    gt = world.kitti_gt()[:F]
+    drift = kitti_drift(gt, est)
+    return {"keyframes": int(out.is_keyframe.sum()),
+         "attempted": int((out.cost != 0).sum()),
+         "accepted": int(out.solved.sum()), "po_ok": int(out.po_ok.sum()),
+         "min_n_tracks": int(out.n_tracks[5:].min()),
+         "min_n_matches": int(out.n_matches[5:].min()),
+         "min_n_depth": int(out.n_depth[5:].min()),
+         "ate_m": ate_rmse(gt, est), "drift_t_percent": drift["t_err_percent"],
+         "drift_r_deg_per_m": drift["r_err_deg_per_m"],
+         "drift_segments": drift["num_segments"]}
+
+
+def outs_equal(a, b):
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def fused_states_equal(a, b):
+    return states_equal(a.scan, b.scan) and outs_equal(a[1:], b[1:])
+
+
+def fused_phase(device, card, errs):
+    """Phase 7: the fused drive at full width. Returns (fused launches, the
+    updated kernel errors, the phase's record)."""
+    t0 = time.perf_counter()
+    drive = fused_drive(device=device)
+    stamps, imgs, clouds, labels, rig, cfg, pcfg, world = drive
+    F = len(stamps)
+    render_s = time.perf_counter() - t0
+    max_cloud = max(len(c) for c in clouds)
+    print(f"{F} frames rendered in {render_s:.1f} s ({imgs.shape[2]} x "
+          f"{imgs.shape[1]}, largest cloud {max_cloud} points, capacity "
+          f"{pcfg.cloud_capacity}); capacity {cfg.capacity.max_keyframes} x "
+          f"{cfg.capacity.max_landmarks} x {cfg.capacity.max_cameras}, "
+          f"{pcfg.tracker.max_features} features, float32")
+    check(max_cloud <= pcfg.cloud_capacity, "a cloud exceeds the capacity")
+    plan = ba_core.assembly_plan(torch.float32, device, cfg)
+    check(plan.startswith("cuda["), f"plan {plan} is not the kernel path")
+
+    print(f"stages of frames 0-{FUSED_PARITY_FRAMES - 1} against the port's "
+          f"f64 run on the CPU (at {time.perf_counter() - T0:.1f} s):")
+    parity = fused_stage_parity(device, drive)
+
+    # pass 1: the timed drive, launches counted from zero
+    runner = fused.make_fused_runner(rig, cfg, pcfg, world.image_size, True)
+    st0 = fused.init_fused_state(cfg, pcfg, torch.float32, device)
+    torch.cuda.synchronize()
+    for k in ca.launches:
+        ca.launches[k] = 0
+    with recording_solves() as calls:
+        st1, out1, frame_ms, chunk_ms = timed_fused(runner, st0, drive,
+                                                    FUSED_CHUNK, device)
+    launches = dict(ca.launches)
+    infos = runner.stats.solves
+    n_it = sum(i.n_iterations for i in infos)
+    n_rounds = sum(i.n_rounds for i in infos)
+    counts = fused_counts(out1, world)
+    print(f"launches in the drive: {launches} ({len(infos)} solves run, "
+          f"LM iterations {n_it}, trim rounds {n_rounds})")
+    check(all(launches[k] > 0 for k in launches), f"launches {launches}")
+    check(launches["assemble_obs"] == n_it, f"launches {launches}")
+    check(launches["cost_obs"] == len(infos) + n_it + n_rounds,
+          f"launches {launches}")
+
+    solve = (out1.cost != 0).tolist()
+    front = [(up + fe) / n for n, up, fe in chunk_ms for _ in range(n)]
+    total = [s + f for s, f in zip(frame_ms, front)]
+    pick = lambda xs, want: [x for x, s in zip(xs, solve) if s == want]
+    syncs_per_frame = runner.stats.host_syncs / runner.stats.frames
+    timing = {
+        "ms_per_frame": statistics.median(total),
+        "ms_per_frame_solve": statistics.median(pick(total, True)),
+        "ms_per_frame_no_solve": statistics.median(pick(total, False)),
+        "step_ms_median": statistics.median(frame_ms),
+        "front_end_ms_per_chunk": [fe for _, _, fe in chunk_ms],
+        "upload_ms_per_chunk": [up for _, up, _ in chunk_ms],
+        "front_end_ms_per_frame": sum(fe for _, _, fe in chunk_ms) / F,
+        "upload_ms_per_frame": sum(up for _, up, _ in chunk_ms) / F,
+        "drive_s": (sum(frame_ms) + sum(up + fe for _, up, fe in chunk_ms))
+        / 1e3,
+        "host_syncs_per_frame": syncs_per_frame,
+        "frame_step_ms": frame_ms}
+    print(f"{card}: ms per fused frame median {timing['ms_per_frame']:.3f} "
+          f"(frames with a solve {timing['ms_per_frame_solve']:.3f} over "
+          f"{sum(solve)}, without {timing['ms_per_frame_no_solve']:.3f}); "
+          f"step alone median {timing['step_ms_median']:.3f}; front end "
+          f"{timing['front_end_ms_per_frame']:.3f} ms per frame (per chunk "
+          f"{[round(x, 1) for x in timing['front_end_ms_per_chunk']]}), "
+          f"uploads {timing['upload_ms_per_frame']:.3f} ms per frame; drive "
+          f"{timing['drive_s']:.1f} s; host syncs per frame of the step "
+          f"{syncs_per_frame:.2f} ({runner.stats.host_syncs} in "
+          f"{runner.stats.frames} frames stepped, the last chunk's replays "
+          f"included); launches per frame "
+          f"{launches['assemble_obs'] / F:.2f} / {launches['cost_obs'] / F:.2f}")
+    print(f"counts {counts}")
+    print(f"reference package (JAX f32, CPU): {REF_FUSED}")
+    check(all(bool(torch.isfinite(f).all()) for f in
+              (out1.pose, out1.refined, out1.cost)), "non-finite FusedOut")
+    check(tuple(out1.pose.shape) == (F, 7), f"pose shape {out1.pose.shape}")
+    check(all(counts[k] > v for k, v in FUSED_STRUCTURE.items()),
+          f"structure gates {FUSED_STRUCTURE}: {counts}")
+    for key, (lo, hi) in FUSED_BAND.items():
+        check(lo * REF_FUSED[key] <= counts[key] <= hi * REF_FUSED[key],
+              f"{key} {counts[key]} outside [{lo}, {hi}] x the reference's "
+              f"{REF_FUSED[key]}")
+
+    scan_windows = [(f"fused solve {j} (frame window)", (w, sel, rig, cfg))
+                    for j, (w, sel, _) in enumerate(calls[:N_SCAN_CHECK])]
+    errs = check_windows(scan_windows, errs)
+    print(f"the first {FUSED_F64_SOLVES} solves against the port's f64 solve "
+          f"on the CPU (at {time.perf_counter() - T0:.1f} s):")
+    solves = against_f64(calls[:FUSED_F64_SOLVES], rig, cfg,
+                         FUSED_FINAL_FACTOR)
+
+    # pass 2: run_fused, bit-identical to pass 1, its host syncs counted
+    print(f"second pass (at {time.perf_counter() - T0:.1f} s)")
+    with counting_syncs() as syncs:
+        st2, out2 = fused.run_fused(stamps, imgs, clouds, rig, cfg, pcfg,
+                                    label_images=labels, chunk=FUSED_CHUNK,
+                                    device=device)
+        torch.cuda.synchronize()
+    check(outs_equal(out1, out2), "two passes of the drive differ (FusedOut)")
+    check(fused_states_equal(st1, st2), "two passes differ (FusedState)")
+    n_syncs = sum(syncs.values())
+    print(f"second pass (run_fused): FusedOut and final FusedState "
+          f"bit-identical; synchronizing operations (sync debug mode) "
+          f"{n_syncs}, {n_syncs / F:.2f} per frame; by caller "
+          f"{dict(syncs.most_common(8))}")
+
+    # chunked against whole: the first FUSED_CHUNK_FRAMES frames
+    print(f"chunked against whole (at {time.perf_counter() - T0:.1f} s)")
+    nc = FUSED_CHUNK_FRAMES
+    part = (stamps[:nc], imgs[:nc], clouds[:nc], rig, cfg, pcfg)
+    _, out_a = fused.run_fused(*part, label_images=labels[:nc], device=device)
+    _, out_b = fused.run_fused(*part, label_images=labels[:nc], chunk=16,
+                               device=device)
+    pose_gap = float((out_a.pose - out_b.pose).abs().max())
+    first = fused.FusedOut(*[x[:nc] for x in out1])
+    print(f"first {nc} frames, chunks of 16 against one chunk: max |pose| "
+          f"gap {pose_gap:.3g}, bit-identical {outs_equal(out_a, out_b)}; "
+          f"one chunk of {nc} against pass 1 (chunks of {FUSED_CHUNK}): "
+          f"bit-identical {outs_equal(out_a, first)}")
+    check(pose_gap <= 1e-6
+          and torch.equal(out_a.is_keyframe, out_b.is_keyframe)
+          and torch.equal(out_a.solved, out_b.solved),
+          "chunked and whole runs differ")
+
+    # where the time goes: the first frames under the profiler
+    print(f"profile (at {time.perf_counter() - T0:.1f} s)")
+    npf = FUSED_PROFILE_FRAMES
+    runner3 = fused.make_fused_runner(rig, cfg, pcfg, world.image_size, True)
+    (_, out3), prof, wall_ms = profiled(lambda: fused.run_fused(
+        stamps[:npf], imgs[:npf], clouds[:npf], rig, cfg, pcfg,
+        label_images=labels[:npf], device=device, runner=runner3))
+    print(f"  ({len(runner3.stats.solves)} solves in the profiled frames; "
+          f"bit-identical to pass 1: "
+          f"{outs_equal(out3, fused.FusedOut(*[x[:npf] for x in out1]))})")
+    trace = trace_summary(prof, wall_ms, f"fused frames 0-{npf - 1}", per=npf)
+
+    return launches, errs, {
+        "card": card, "frames": F, "render_s": render_s,
+        "max_cloud": max_cloud, "counts": counts, "reference": REF_FUSED,
+        "band": FUSED_BAND, "structure": FUSED_STRUCTURE,
+        "stage_parity": parity, **timing,
+        "launches": launches, "solves": solves, "syncs": dict(syncs),
+        "syncs_per_frame": n_syncs / F, "chunk_pose_gap": pose_gap,
+        "profile": trace or "not measured",
+        "profiled_solves": len(runner3.stats.solves)}
+
+
 def main():
     phase("device")
     if not torch.cuda.is_available():
@@ -698,7 +1203,7 @@ def main():
 
 
 def run(device, card):
-    """Phases 2-6 on ``device``; prints the result lines."""
+    """Phases 2-7 on ``device``; prints the result lines."""
     phase("build")
     b = ca.build()
     print(f"built {b.path.name} in {b.seconds:.1f} s")
@@ -720,15 +1225,21 @@ def run(device, card):
     phase("scan drive at full width: 20x1536, 60 frames, f32")
     errs = {k: (r["max_abs_err"], r["max_rel_err"]) for k, r in records.items()}
     scan_launches, errs, scan = scan_phase(device, card, errs)
+
+    phase("fused drive at full width: images + clouds, 200 frames, f32")
+    fused_launches, errs, fused_rec = fused_phase(device, card, errs)
     for name, r in records.items():
         r["max_abs_err"], r["max_rel_err"] = errs[name]
         r["scan_launches"] = scan_launches[name]
         r["scan_launches_per_frame"] = scan_launches[name] / scan["frames"]
+        r["fused_launches"] = fused_launches[name]
+        r["fused_launches_per_frame"] = (fused_launches[name]
+                                         / fused_rec["frames"])
 
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "kernels": list(records.values()), "solve": solve,
-         "profile": prof, "scan": scan}, indent=1))
+         "profile": prof, "scan": scan, "fused": fused_rec}, indent=1))
     print(card)
     print(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {

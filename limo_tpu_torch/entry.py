@@ -18,16 +18,28 @@ window of 40 keyframe slots whose keyframes in use sit in slots 28-39
 default ``LimoConfig()`` capacity (20 keyframe slots × 1536 landmark slots
 × 1 camera) on a synthetic 10 m/s KITTI-like world, for
 :func:`limo_tpu_torch.pipeline.scan_odometry.run_sequence`.
+
+:func:`fused_drive` builds the fused images + clouds drive at full width,
+the reference package's flagship fused configuration, for
+:func:`limo_tpu_torch.pipeline.fused.run_fused`.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
-from .config import CapacityConfig, LimoConfig
+from .config import (CapacityConfig, LandmarkSelectionConfig, LimoConfig,
+                     PriorConfig)
+from .frontend.lidar_depth import LidarDepthConfig
+from .frontend.tracker import TrackerConfig
 from .geometry import pose as pose_ops
 from .geometry.camera import CameraRig
+from .pipeline.evaluation import make_km_rendered_world
+from .pipeline.full import LimoPipelineConfig
+from .pipeline.render import SequenceRenderer
 from .pipeline.synthetic import dense_tracks, make_world
 from .state import Selection, Window, empty_window
 
@@ -185,3 +197,43 @@ def scan_drive(num_frames=60, seed=3, with_depth=True, dtype=torch.float32,
     rig = CameraRig(focal=on(world.focal), principal=on(world.principal),
                     T_cam_veh=on(world.T_cam_veh))
     return stamps, uvd, valid, rig, cfg, world
+
+
+def fused_drive(num_frames=200, seed=11, device="cuda"):
+    """The full-width fused drive, as the reference package's
+    ``evaluation.evaluate_rendered_long_drive`` builds it: ``LimoConfig()``
+    (20 keyframe slots × 1536 landmark slots × 1 camera) with a 1.65 m
+    camera height and a 12 m/s default speed; 384 features (border 8, NMS
+    radius 5); the default lidar depth; the groundplane on; clouds padded
+    to 16384 points; labels on. The world is ``make_km_rendered_world(
+    num_frames, seed=seed)`` (a ramp, a standstill and two turns, scaled to
+    ``num_frames``) rendered at 512 × 192, f = 450, clouds drawn from
+    ``np.random.default_rng(seed)``. Returns (stamps [F], images_u8
+    [F,H,W], clouds (a list of [Ni,3] vehicle-frame scans), label_images
+    [F,H,W] uint8, rig on ``device``, cfg, pcfg, world)."""
+    world, _ = make_km_rendered_world(num_frames, seed=seed)
+    cfg = LimoConfig(
+        landmark_selection=dataclasses.replace(
+            LandmarkSelectionConfig(), height_over_ground=1.65),
+        prior=dataclasses.replace(PriorConfig(), default_speed=12.0))
+    pcfg = LimoPipelineConfig(
+        limo=cfg,
+        tracker=TrackerConfig(max_features=384, border=8, nms_radius=5),
+        lidar=LidarDepthConfig(), use_groundplane=True,
+        cloud_capacity=16384)
+    rend = SequenceRenderer(world)
+    rng = np.random.default_rng(seed)
+    W, H = world.image_size
+    images = np.empty((num_frames, H, W), np.uint8)
+    labels = np.empty_like(images)
+    clouds = []
+    for i in range(num_frames):
+        img, lab = rend.frame(i)
+        images[i] = (img * 255).astype(np.uint8)
+        labels[i] = lab
+        clouds.append(rend.cloud(i, rng))
+    rig = CameraRig.single(world.focal, world.principal[0],
+                           world.principal[1], T_cam_veh=world.T_cam_veh,
+                           device=device)
+    return (world.stamps[:num_frames], images, clouds, labels, rig, cfg,
+            pcfg, world)

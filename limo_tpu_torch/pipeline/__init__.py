@@ -1,5 +1,6 @@
-"""The scan-odometry step on track tensors, and the numpy drive and metric
-instruments it is run and scored with."""
+"""The scan-odometry step on track tensors, the fused images + clouds
+pipeline that feeds it (:mod:`.fused`), and the numpy drive and metric
+instruments they are run and scored with."""
 
 from .scan_odometry import (FrameOut, ScanState, ScanStats, frame_arrays,
                             init_state, make_scan_step, poses_kitti,

@@ -24,14 +24,13 @@ import torch
 
 from ..geometry import pose as pose_ops
 from ..state import Window
+from ..utils import uint32
 
 # category codes
 CAT_NONE = -1
 CAT_NEAR = 0
 CAT_MIDDLE = 1
 CAT_FAR = 2
-
-_U32 = 0xFFFFFFFF
 
 
 def norm(x):
@@ -123,19 +122,12 @@ def _masked_topk_mask(scores, mask, k: int) -> torch.Tensor:
     return sel & (rank < k)
 
 
-def _mul_u32(x, c: int):
-    """(x · c) mod 2^32 for x in [0, 2^32) held in int64: the constant is
-    split into 16-bit halves so that no product reaches 2^63."""
-    lo, hi = c & 0xFFFF, c >> 16
-    return (x * lo + (((x * hi) & 0xFFFF) << 16)) & _U32
-
-
 def _hash_u32(x) -> torch.Tensor:
     """Cheap integer hash (xorshift-multiply) for pseudo-random choice: the
     reference package's uint32 arithmetic, in int64 under a 32-bit mask."""
-    x = x.to(torch.int64) & _U32
-    x = _mul_u32(x ^ (x >> 16), 0x7FEB352D)
-    x = _mul_u32(x ^ (x >> 15), 0x846CA68B)
+    x = x.to(torch.int64) & uint32.MASK
+    x = uint32.mul(x ^ (x >> 16), 0x7FEB352D)
+    x = uint32.mul(x ^ (x >> 15), 0x846CA68B)
     return x ^ (x >> 16)
 
 
@@ -242,10 +234,10 @@ def voxel_scheme(window: Window, newest_kf, candidates, cfg,
             + 1_000_00 for i in range(3)]           # offset to positive
     # uint32 spatial hash (wraparound is defined). The low bit is cleared so
     # the all-ones sentinel is unreachable by any real cell.
-    u32 = [c.to(torch.int64) & _U32 for c in cell]
-    key = (_mul_u32(u32[0], 73856093) ^ _mul_u32(u32[1], 19349663)
-           ^ _mul_u32(u32[2], 83492791)) & 0xFFFFFFFE
-    sentinel = _U32
+    u32 = [c.to(torch.int64) & uint32.MASK for c in cell]
+    key = (uint32.mul(u32[0], 73856093) ^ uint32.mul(u32[1], 19349663)
+           ^ uint32.mul(u32[2], 83492791)) & 0xFFFFFFFE
+    sentinel = uint32.MASK
     key = torch.where(mid_cand, key, torch.full_like(key, sentinel))
     order = torch.argsort(key, stable=True)
     sorted_key = key[order]

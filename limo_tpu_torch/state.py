@@ -160,6 +160,22 @@ def scan_state_to_numpy(st):
                     *[x.detach().cpu().numpy() for x in st[1:]])
 
 
+def fused_state_from_numpy(st, device="cuda"):
+    """FusedState from the reference package's FusedState (numpy or
+    array-likes), scan state included."""
+    from .pipeline.fused import FusedState
+    return FusedState(scan=scan_state_from_numpy(st.scan, device),
+                      **{f: torch.as_tensor(np.array(getattr(st, f)),
+                                            device=device)
+                         for f in FusedState._fields[1:]})
+
+
+def fused_state_to_numpy(st):
+    """Device → host copy: a FusedState of numpy arrays."""
+    return type(st)(scan_state_to_numpy(st.scan),
+                    *[x.detach().cpu().numpy() for x in st[1:]])
+
+
 def config_from_dict(d: dict) -> LimoConfig:
     """LimoConfig from ``dataclasses.asdict`` of the reference's config
     (field names are shared; lists become the tuples the dataclasses hold)."""

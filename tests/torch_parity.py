@@ -188,3 +188,40 @@ def assert_scan_state(ref, port, where=""):
             np.testing.assert_array_equal(b, a, err_msg=f"{where} {name}")
         else:
             assert_close(b, a, SCAN_RTOL, SCAN_ATOL, f"{where} {name}")
+
+
+# ---------------------------------------------------------------------------
+# The fused pipeline: test_fused.py's rendered world, handed to both packages
+# ---------------------------------------------------------------------------
+
+def fused_world(n_frames):
+    """test_fused.py's rendered world, its first ``n_frames`` frames: (world,
+    stamps [F], images_u8 [F,H,W], clouds (list of [Ni,3] vehicle-frame
+    scans), label_images [F,H,W], cfg, pcfg, rig) with the reference
+    package's configs ``small_configs()`` and a float64 rig."""
+    from test_fused import FOCAL, H_IMG, W_IMG, render_sequence, small_configs
+    world = make_world(num_frames=n_frames, speed=6.0, yaw_rate=0.012,
+                       n_landmarks=360, n_ground=110, n_shrubbery=40,
+                       n_dynamic=25, dynamic_speed=6.0, seed=9, focal=FOCAL,
+                       pp=(W_IMG / 2.0, H_IMG / 2.0), image_size=(W_IMG, H_IMG))
+    imgs, clouds, labels = render_sequence(world, n_frames,
+                                           np.random.default_rng(11))
+    cfg, pcfg = small_configs()
+    f64 = lambda a: jnp.asarray([a], jnp.float64)
+    rig = JaxRig(focal=f64(world.focal), principal=f64(world.principal),
+                 T_cam_veh=f64(world.T_cam_veh))
+    return (world, world.stamps[:n_frames], imgs, clouds, labels, cfg, pcfg,
+            rig)
+
+
+def pipeline_config_of(pcfg):
+    """The port's LimoPipelineConfig from the reference package's."""
+    from limo_tpu_torch.frontend.lidar_depth import LidarDepthConfig
+    from limo_tpu_torch.frontend.tracker import TrackerConfig
+    from limo_tpu_torch.pipeline.full import LimoPipelineConfig
+    kw = dataclasses.asdict(pcfg)
+    return LimoPipelineConfig(
+        limo=tstate.config_from_dict(kw.pop("limo")),
+        tracker=TrackerConfig(**kw.pop("tracker")),
+        lidar=LidarDepthConfig(**kw.pop("lidar")),
+        **{k: tuple(v) if isinstance(v, list) else v for k, v in kw.items()})
