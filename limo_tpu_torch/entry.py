@@ -22,6 +22,11 @@ default ``LimoConfig()`` capacity (20 keyframe slots × 1536 landmark slots
 :func:`fused_drive` builds the fused images + clouds drive at full width,
 the reference package's flagship fused configuration, for
 :func:`limo_tpu_torch.pipeline.fused.run_fused`.
+
+:func:`kitti_host_drive` writes the reference package's rendered KITTI-layout
+drive (its host-engine gate's world) to disk and returns that gate's
+configuration, for :func:`limo_tpu_torch.pipeline.evaluation.
+evaluate_kitti_sequence`.
 """
 
 from __future__ import annotations
@@ -39,7 +44,7 @@ from .geometry import pose as pose_ops
 from .geometry.camera import CameraRig
 from .pipeline.evaluation import make_km_rendered_world
 from .pipeline.full import LimoPipelineConfig
-from .pipeline.render import SequenceRenderer
+from .pipeline.render import SequenceRenderer, write_kitti_sequence
 from .pipeline.synthetic import dense_tracks, make_world
 from .state import Selection, Window, empty_window
 
@@ -237,3 +242,38 @@ def fused_drive(num_frames=200, seed=11, device="cuda"):
                            device=device)
     return (world.stamps[:num_frames], images, clouds, labels, rig, cfg,
             pcfg, world)
+
+
+# the drift segments of the reference package's rendered host-engine gate
+KITTI_HOST_DRIFT_KW = {"lengths": (25.0, 50.0), "step": 5}
+
+
+def kitti_host_drive(num_frames: int, root: str, seed: int = 9,
+                     cloud_seed: int = 42):
+    """The reference package's rendered host-engine gate
+    (``tests/test_kitti_eval.py``, the 200-frame drift gate), cut only in
+    length: ``make_world(num_frames, speed=6.0, yaw_rate=0.012,
+    n_landmarks=500, n_ground=150, n_shrubbery=60, n_dynamic=40,
+    dynamic_speed=6.0, seed=seed)`` rendered at 512 × 192, f = 450, with
+    label images, written to ``root`` in the KITTI odometry layout (clouds
+    drawn from ``np.random.default_rng(cloud_seed)``). Its configuration:
+    ``LimoConfig()`` at its full 20 × 1536 × 1 with a 1.65 m camera height
+    and a 6 m/s default speed; 256 features (border 8); the default lidar
+    depth; the groundplane on; clouds padded to 16384 points. Returns (GT
+    pose file path, LimoPipelineConfig)."""
+    wi, hi, fo = 512, 192, 450.0
+    world = make_world(num_frames=num_frames, speed=6.0, yaw_rate=0.012,
+                       n_landmarks=500, n_ground=150, n_shrubbery=60,
+                       n_dynamic=40, dynamic_speed=6.0, seed=seed,
+                       focal=fo, pp=(wi / 2.0, hi / 2.0), image_size=(wi, hi))
+    gt_path = write_kitti_sequence(root, world, num_frames,
+                                   np.random.default_rng(cloud_seed),
+                                   with_labels=True)
+    pcfg = LimoPipelineConfig(
+        limo=LimoConfig(
+            landmark_selection=dataclasses.replace(
+                LandmarkSelectionConfig(), height_over_ground=1.65),
+            prior=dataclasses.replace(PriorConfig(), default_speed=6.0)),
+        tracker=TrackerConfig(max_features=256, border=8),
+        lidar=LidarDepthConfig(), use_groundplane=True, cloud_capacity=16384)
+    return gt_path, pcfg

@@ -5,13 +5,18 @@ The reference package's ``limo_tpu/frontend/semantics.py`` (``dilate_labels``,
 ``sample_labels``) as PyTorch ops, over any leading batch shape. The label
 image is dilated with half-kernel 8, outlier classes growing over their
 neighbours; each feature then takes the majority label of its 3×3 ROI.
-``attach_labels`` (the host tracklet path) is not part of the port yet.
+``attach_labels`` runs both for the host engine's tracklets, with one
+upload and one read.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+
+from ..utils.transfer import read_back, upload
+from ..window_manager import DEFAULT_OUTLIER_LABELS
 
 
 def dilate_labels(label_img, priority_mask, half_kernel: int = 8):
@@ -48,3 +53,24 @@ def sample_labels(label_img, uv):
     counts = (roi[..., :, None] == roi[..., None, :]).sum(-1)
     best = torch.argmax(counts, -1)
     return torch.gather(roi, -1, best[..., None])[..., 0]
+
+
+def attach_labels(tracklets, label_img: np.ndarray, half_kernel: int = 8,
+                  outlier_labels=DEFAULT_OUTLIER_LABELS, device="cuda"):
+    """Dilate outlier classes, sample per-feature labels at the newest stamp,
+    attach to tracks (host wrapper: one upload, one read). Returns a new
+    Tracklets."""
+    from ..pipeline.tracklets import Tracklets
+
+    li, uv, table = upload(
+        [np.asarray(label_img, np.int32),
+         np.asarray(tracklets.uvd[:, 0, :2], np.float64),
+         np.asarray(sorted(outlier_labels), np.int32)], device)
+    dilated = dilate_labels(li, torch.isin(li, table), half_kernel)
+    labels = read_back([sample_labels(dilated, uv)])[0]
+    m = tracklets.mask[:, 0]
+    new_label = tracklets.label.copy()
+    new_label[m] = labels[m]
+    return Tracklets(stamps=tracklets.stamps, uvd=tracklets.uvd,
+                     mask=tracklets.mask, ids=tracklets.ids, age=tracklets.age,
+                     is_outlier=tracklets.is_outlier, label=new_label)

@@ -16,8 +16,9 @@ match radius, outlier flow tolerance, subpixel refinement.
 ``detect`` takes any leading batch shape, and every per-image result is
 independent of it: the convolutions are fixed sums of shifted slices (no
 cuDNN algorithm choice, no TF32), the top-k is a stable sort, and the rest
-is elementwise, pooling or gathers. ``FeatureTracker`` (the host-side
-tracker) is not part of the port yet.
+is elementwise, pooling or gathers. ``FeatureTracker`` feeds a frame's
+detections and matches to the host-side ``TrackletBuilder`` with one read
+per frame.
 
 Choices of the reference kept exactly: ``jax.lax.top_k`` puts the lower
 index first on ties (here a stable descending sort), ``argmax`` takes the
@@ -30,11 +31,14 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import NamedTuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..selection.landmark import norm, take
 from ..utils.precision import full_f32
+from ..utils.profiling import traced
+from ..utils.transfer import read_back
 
 
 @dataclass(frozen=True)
@@ -290,3 +294,112 @@ def match(cur: Features, prev: Features,
     return MatchResult(prev_index=prev_index.to(torch.int32),
                        n_matches=good.sum(dtype=torch.int32))
 
+
+
+def _empty_features(cfg: TrackerConfig, dtype=torch.float32,
+                    device="cuda") -> Features:
+    """Zero-filled Features placeholder (first frame has no prev)."""
+    N = cfg.max_features
+    D = 3 * cfg.patch * cfg.patch  # intensity + gx + gy per pixel
+    kw = dict(dtype=dtype, device=device)
+    return Features(uv=torch.zeros((N, 2), **kw),
+                    response=torch.zeros((N,), **kw),
+                    desc=torch.zeros((N, D), **kw),
+                    valid=torch.zeros((N,), dtype=torch.bool, device=device))
+
+
+def _detect_and_match(img, prev, cfg: TrackerConfig, has_prev: bool):
+    """detect on a batch of one + match against ``prev`` when there is a
+    previous frame. Returns (Features, prev_index [N] int32)."""
+    feats = detect(img, cfg)
+    if has_prev:
+        return feats, match(feats, prev, cfg).prev_index
+    return feats, torch.full((cfg.max_features,), -1, dtype=torch.int32,
+                             device=img.device)
+
+
+class FeatureTracker:
+    """Host-side wrapper: detect → match → feed TrackletBuilder.
+
+    Images are float32 (as the reference tracks them) unless ``dtype`` says
+    otherwise; ``device``: where detection and matching run (the card unless
+    the caller asks for the CPU)."""
+
+    def __init__(self, cfg: TrackerConfig = TrackerConfig(),
+                 max_track_length: int = 100, device="cuda",
+                 dtype=torch.float32):
+        from ..pipeline.tracklets import TrackletBuilder
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.dtype = dtype
+        self.builder = TrackletBuilder(max_track_length=max_track_length)
+        self._prev: Features | None = None
+        self._prev_valid_np: np.ndarray | None = None
+
+    @traced("limo.tracker")
+    def process(self, stamp: float, img, depth_fn=None) -> None:
+        """img: [H,W] grayscale float (numpy, or a tensor on the tracker's
+        device). depth_fn: optional callable (uv [N,2] tensor on the device
+        → depths [N] tensor), the lidar depth hook; it is called on the full
+        fixed-shape ``uv`` and its result compacted to the valid features
+        afterwards. The frame's features, matches and depths come back in
+        one read."""
+        has_prev = self._prev is not None
+        prev = self._prev if has_prev else _empty_features(
+            self.cfg, self.dtype, self.device)
+        if isinstance(img, np.ndarray):
+            img = torch.from_numpy(np.asarray(img, np.float32)).to(
+                self.device)
+        feats, pm_dev = _detect_and_match(img.to(self.dtype), prev, self.cfg,
+                                          has_prev)
+        fields = [feats.uv, feats.valid, pm_dev]
+        if depth_fn is not None:
+            fields.append(depth_fn(feats.uv))
+        host = read_back(fields)
+        uv, valid, prev_match = host[:3]
+        prev_match = prev_match.astype(np.int64)
+        uv_v = uv[valid]
+        pm = prev_match[valid]
+        # remap prev indices to the previous frame's valid-compacted order
+        # (previous valid mask cached on the host — no extra read)
+        if has_prev:
+            prev_valid = self._prev_valid_np
+            remap = np.full(prev_valid.shape[0], -1, np.int64)
+            remap[prev_valid] = np.arange(int(prev_valid.sum()))
+            pm = np.where(pm >= 0, remap[np.clip(pm, 0, None)], -1)
+        depths = host[3][valid] if depth_fn is not None else None
+        self.builder.push_frame(stamp, uv_v, pm, depths)
+        self._prev = feats
+        self._prev_valid_np = valid
+
+    def tracklets(self, window: int | None = None):
+        return self.builder.to_tracklets(window)
+
+
+class MulticamFeatureTracker:
+    """Per-camera detection/matching/tracking for a rigid multi-camera rig:
+    one independent tracker per camera (no cross-camera matching), merged
+    into one namespaced tracklet stream + a track→camera routing map
+    (the reference's ``landmark_to_cameras``, keyframe.cpp:43-59)."""
+
+    def __init__(self, num_cameras: int, cfg: TrackerConfig = TrackerConfig(),
+                 max_track_length: int = 100, id_stride: int = 1_000_000,
+                 device="cuda", dtype=torch.float32):
+        self.trackers = [FeatureTracker(cfg, max_track_length, device, dtype)
+                         for _ in range(num_cameras)]
+        self.id_stride = id_stride
+
+    def process(self, stamp: float, images, depth_fns=None) -> None:
+        """images: one grayscale [H,W] per camera; depth_fns: optional
+        per-camera (uv → depths) hooks (typically lidar on camera 0 only)."""
+        for c, tr in enumerate(self.trackers):
+            fn = depth_fns[c] if depth_fns else None
+            tr.process(stamp, images[c], depth_fn=fn)
+
+    def tracklets(self, window: int | None = None):
+        """(merged Tracklets, {global_id: camera}) — feed
+        ``process_frame(..., track_camera=...)``."""
+        from ..pipeline.tracklets import merge_tracklets
+        return merge_tracklets(
+            [tr.tracklets(window) for tr in self.trackers],
+            id_stride=self.id_stride)

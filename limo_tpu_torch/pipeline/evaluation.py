@@ -1,16 +1,177 @@
-"""Evaluation worlds for the rendered drives.
+"""Offline evaluation harness — the equivalent of the reference's KITTI
+eval scripts (``res/kitti_eval_script.sh``/``.py``: loop sequences, run the
+pipeline, collect ``NN.txt`` pose files, compute drift).
 
-A copy of ``make_km_rendered_world`` from the reference package's
-``limo_tpu/pipeline/evaluation.py`` (numpy only), so that the fused drive's
-world is built without that package: the same arguments give the same
-world, bit for bit. The rest of that harness is not part of the port yet.
+The reference package's ``limo_tpu/pipeline/evaluation.py``, in part:
+``SequenceReport``, ``evaluate_kitti_sequence`` (a KITTI-layout sequence on
+disk through the host engine, :class:`~.full.LimoPipeline`, or the fused
+engine, :func:`~.fused.run_fused`), ``evaluate_synthetic_sequence``,
+``batch_evaluate_synthetic`` and the world of the rendered long drive,
+``make_km_rendered_world`` (numpy only: the same arguments give the same
+world, bit for bit). The rendered long-drive evaluators and the batched
+sequence evaluators are not part of the port yet.
 """
 
 from __future__ import annotations
 
-import numpy as np
+import dataclasses
+import json
+import os
+import time
+from dataclasses import dataclass
+from typing import Dict, List, Optional
 
-from .synthetic import make_world
+import numpy as np
+import torch
+
+from ..config import LandmarkSelectionConfig, LimoConfig
+from ..geometry.camera import CameraRig
+from ..io import kitti
+from .full import LimoPipeline, LimoPipelineConfig
+from .metrics import ate_rmse, kitti_drift
+from .odometry import LidarOdometry
+from .synthetic import SyntheticTracker, make_world
+
+
+@dataclass
+class SequenceReport:
+    name: str
+    n_frames: int
+    fps: float
+    ate: float
+    drift: Dict[str, float]
+
+    def to_json(self) -> str:
+        return json.dumps({"name": self.name, "n_frames": self.n_frames,
+                           "fps": round(self.fps, 2),
+                           "ate_m": round(self.ate, 4), **self.drift})
+
+
+def evaluate_kitti_sequence(seq_dir: str, out_poses: str,
+                            gt_poses: Optional[str] = None,
+                            max_frames: Optional[int] = None,
+                            cfg: Optional[LimoPipelineConfig] = None,
+                            drift_kw: Optional[Dict] = None,
+                            engine: str = "host",
+                            chunk: Optional[int] = 64,
+                            repeat: int = 1,
+                            device="cuda") -> SequenceReport:
+    """Run the full pipeline on a KITTI odometry sequence directory and dump
+    the trajectory in KITTI format (reference dump: mono_lidar.cpp:275-300).
+
+    engine="host": the per-frame host-driven :class:`LimoPipeline` (the
+    reference's online node shape — one call per frame), with frame
+    loading overlapped by the prefetch executor.
+    engine="fused": the device-resident scan pipeline (:mod:`.fused`) —
+    images + clouds upload per ``chunk`` frames (``repeat`` > 1 re-runs it
+    and reports the best run's rate). ``device``: where the pipeline runs
+    (the card unless the caller asks for the CPU)."""
+    seq = kitti.KittiSequence.open(seq_dir, gt_poses)
+    calib = seq.calib
+    # camera extrinsics: vehicle frame = cam0 frame ⇒ identity; velodyne →
+    # cam via Tr (KITTI convention)
+    rig = CameraRig.single(calib.focal, calib.principal[0],
+                           calib.principal[1], device=device)
+    n = len(seq) if max_frames is None else min(max_frames, len(seq))
+    Tr = calib.Tr_cam_velo
+
+    with_labels = seq.has_labels
+
+    if engine == "fused":
+        from . import fused as fu
+
+        if cfg is None:
+            from ..frontend.lidar_depth import LidarDepthConfig
+            from ..frontend.tracker import TrackerConfig
+            cfg = LimoPipelineConfig(limo=LimoConfig(),
+                                     tracker=TrackerConfig(),
+                                     lidar=LidarDepthConfig())
+        imgs = np.stack([(seq.load_image(i) * 255.0).astype(np.uint8)
+                         for i in range(n)])
+        clouds = [(seq.load_velodyne(i)[:, :3] @ Tr[:3, :3].T) + Tr[:3, 3]
+                  for i in range(n)]
+        labels = (np.stack([seq.load_labels(i) for i in range(n)])
+                  if with_labels else None)
+        dt = float("inf")
+        for _ in range(max(repeat, 1)):
+            t0 = time.time()
+            _, out = fu.run_fused(seq.times[:n], imgs, clouds, rig,
+                                  cfg.limo, cfg, label_images=labels,
+                                  chunk=chunk, device=device)
+            est = fu.poses_kitti(out)        # a read: the run has ended
+            dt = min(dt, time.time() - t0)   # warm = best in-process run
+    elif engine == "host":
+        pipe = LimoPipeline(rig, cfg, device=device)
+
+        def load(i):
+            img = seq.load_image(i)
+            velo = seq.load_velodyne(i)
+            # velodyne → cam0 (= vehicle) frame
+            cloud = (velo[:, :3] @ Tr[:3, :3].T) + Tr[:3, 3]
+            if with_labels:
+                # semantic label images drive the outlier/shrubbery/ground
+                # path (reference: semantic_labels nodelet,
+                # kitti_standalone.launch)
+                return seq.times[i], img, cloud, seq.load_labels(i)
+            return seq.times[i], img, cloud
+
+        from .executor import run_pipelined
+        t0 = time.time()
+        run_pipelined(pipe, range(n), load)
+        dt = time.time() - t0
+        est = pipe.poses_kitti()
+    else:
+        raise ValueError(f"unknown engine {engine!r}")
+    kitti.write_poses(out_poses, est)
+    ate = float("nan")
+    drift = {"t_err_percent": float("nan"), "r_err_deg_per_m": float("nan"),
+             "num_segments": 0}
+    if seq.poses_gt is not None:
+        ate = ate_rmse(seq.poses_gt, est)
+        drift = kitti_drift(seq.poses_gt, est, **(drift_kw or {}))
+    return SequenceReport(name=os.path.basename(seq_dir), n_frames=n,
+                          fps=n / max(dt, 1e-9), ate=ate, drift=drift)
+
+
+def evaluate_synthetic_sequence(num_frames: int = 60, seed: int = 0,
+                                with_depth: bool = True,
+                                cfg: Optional[LimoConfig] = None,
+                                dtype=torch.float32,
+                                out_poses: Optional[str] = None,
+                                device="cuda") -> SequenceReport:
+    """The dataset-free system gate: synthetic world through the odometry
+    stack (tracklet-level ingest), KITTI-format output + drift/ATE."""
+    world = make_world(num_frames=num_frames, speed=8.0, yaw_rate=0.015,
+                       n_landmarks=600, n_ground=200, seed=seed)
+    rig = CameraRig.single(world.focal, world.principal[0], world.principal[1],
+                           T_cam_veh=world.T_cam_veh, dtype=dtype,
+                           device=device)
+    cfg = cfg or LimoConfig(landmark_selection=dataclasses.replace(
+        LandmarkSelectionConfig(), height_over_ground=1.65))
+    odo = LidarOdometry(rig, cfg, dtype, device)
+    tracker = SyntheticTracker(world, with_depth=with_depth, pixel_noise=0.3,
+                               label_ground=with_depth)
+    t0 = time.time()
+    for i in range(num_frames):
+        tracker.observe(i)
+        odo.process_frame(world.stamps[i], tracker.tracklets())
+    dt = time.time() - t0
+    est = odo.poses_kitti()
+    gt = world.kitti_gt()
+    if out_poses:
+        kitti.write_poses(out_poses, est)
+    return SequenceReport(name=f"synthetic-{seed}", n_frames=num_frames,
+                          fps=num_frames / max(dt, 1e-9),
+                          ate=ate_rmse(gt, est, with_scale=not with_depth),
+                          drift=kitti_drift(gt, est, lengths=(20.0, 30.0),
+                                            step=5))
+
+
+def batch_evaluate_synthetic(num_sequences: int = 4, **kw
+                             ) -> List[SequenceReport]:
+    """Sequential host loop over sequences."""
+    return [evaluate_synthetic_sequence(seed=s, **kw)
+            for s in range(num_sequences)]
 
 
 def make_km_rendered_world(num_frames: int = 1000, hz: float = 10.0,

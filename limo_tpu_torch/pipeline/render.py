@@ -2,9 +2,11 @@
 clouds from a :class:`~limo_tpu_torch.pipeline.synthetic.SyntheticWorld`.
 
 A copy of the reference package's ``limo_tpu/pipeline/render.py``
-(``SequenceRenderer``; ``write_kitti_sequence`` is left out), so that a
-rendered drive is built without that package: the same world and seed give
-the same images, labels and clouds, bit for bit. It produces the three
+(``SequenceRenderer``, ``write_kitti_sequence``), so that a rendered drive
+is built without that package: the same world and seed give the same
+images, labels and clouds, bit for bit. ``write_kitti_sequence`` writes its
+PNG files through the port's own codec (``io/png.py``), whose files hold
+the same pixels as the reference's. It produces the three
 streams the reference's front end consumes (camera images, velodyne
 clouds, semantic label images) with consistent geometry:
 
@@ -23,11 +25,14 @@ clouds, semantic label images) with consistent geometry:
 
 from __future__ import annotations
 
-from typing import Tuple
+import os
+from typing import Optional, Tuple
 
 import numpy as np
 
 from ..geometry import pose_host
+from ..io import kitti
+from ..io.png import write_png
 from .synthetic import SyntheticWorld
 
 LABEL_ROAD = 7        # in DEFAULT_GROUND_LABELS
@@ -235,3 +240,42 @@ class SequenceRenderer:
         p_veh = pose_host.apply(w.poses_veh[frame], all_w)
         keep = np.linalg.norm(p_veh, axis=1) < max_range
         return p_veh[keep]
+
+
+def write_kitti_sequence(root: str, world: SyntheticWorld, n_frames: int,
+                         rng: np.random.Generator,
+                         with_labels: bool = True,
+                         renderer: Optional[SequenceRenderer] = None) -> str:
+    """Write a KITTI-odometry-layout sequence dir (calib.txt, times.txt,
+    image_0/, velodyne/, optional labels_0/) + GT pose file; returns the GT
+    path. GT is origin←cam0 (the frame `evaluate_kitti_sequence` estimates)."""
+    rend = renderer or SequenceRenderer(world)
+    F = world.focal
+    cx, cy = world.principal
+    os.makedirs(os.path.join(root, "image_0"), exist_ok=True)
+    os.makedirs(os.path.join(root, "velodyne"), exist_ok=True)
+    if with_labels:
+        os.makedirs(os.path.join(root, "labels_0"), exist_ok=True)
+    P0 = np.array([[F, 0, cx, 0], [0, F, cy, 0], [0, 0, 1, 0]])
+    Tr = pose_host.to_matrix(world.T_cam_veh)[:3]
+    with open(os.path.join(root, "calib.txt"), "w") as f:
+        f.write("P0: " + " ".join(map(str, P0.ravel())) + "\n")
+        f.write("Tr: " + " ".join(map(str, Tr.ravel())) + "\n")
+    np.savetxt(os.path.join(root, "times.txt"), world.stamps[:n_frames])
+    for i in range(n_frames):
+        img, lab = rend.frame(i)
+        write_png(os.path.join(root, "image_0", f"{i:06d}.png"),
+                  (img * 255).astype(np.uint8))
+        if with_labels:
+            write_png(os.path.join(root, "labels_0", f"{i:06d}.png"), lab)
+        cloud = rend.cloud(i, rng).astype(np.float32)
+        xyzi = np.concatenate(
+            [cloud, np.zeros((cloud.shape[0], 1), np.float32)], 1)
+        xyzi.tofile(os.path.join(root, "velodyne", f"{i:06d}.bin"))
+    T_cam_origin = np.stack([
+        pose_host.compose(world.T_cam_veh, world.poses_veh[i])
+        for i in range(n_frames)])
+    gt = pose_host.to_matrix(pose_host.inverse(T_cam_origin))
+    gt_path = os.path.join(root, "gt.txt")
+    kitti.write_poses(gt_path, gt)
+    return gt_path

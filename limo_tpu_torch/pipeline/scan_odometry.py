@@ -27,6 +27,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..frontend.essential import estimate_essential, motion_prior_unscaled
 from ..geometry import pose as pose_ops
 from ..geometry import pose_host
 from ..geometry import quaternion as quat
@@ -273,16 +274,13 @@ def make_scan_step(rig, cfg, prior_mode: Optional[str] = None):
     reference's cityscapes sets (``window_manager.DEFAULT_*_LABELS``).
 
     prior_mode: "constant_velocity" (the motion-model prior; the default via
-    cfg.prior.scan_prior_mode) or "identity". The 5-point "essential" prior
-    is not part of the port yet (ROADMAP, Queue 1 item 10).
+    cfg.prior.scan_prior_mode), "essential" (a fresh 5-point prior against
+    the last keyframe on every frame, the constant-velocity prior where
+    RANSAC fails) or "identity".
     """
     if prior_mode is None:
         prior_mode = cfg.prior.scan_prior_mode
-    if prior_mode == "essential":
-        raise NotImplementedError(
-            "prior_mode='essential' (the 5-point prior, frontend/essential.py) "
-            "is not ported yet: ROADMAP Queue 1 item 10")
-    if prior_mode not in ("constant_velocity", "identity"):
+    if prior_mode not in ("constant_velocity", "essential", "identity"):
         raise ValueError(f"unknown prior_mode {prior_mode!r}")
     wcfg = cfg.window
     pc = cfg.prior
@@ -296,6 +294,38 @@ def make_scan_step(rig, cfg, prior_mode: Optional[str] = None):
 
     def isin(label, tab):
         return (label[:, None] == tab[None, :]).any(dim=1)
+
+    @traced("limo.essential")
+    def essential_prior(st, uvd, valid, stamp, cv_prior):
+        """A fresh 5-point prior against the last keyframe from the per-slot
+        track rows (both-valid mask = the reference's getMatches at two
+        stamps, general_helpers.hpp:44-76), unit translation scaled by
+        speed·Δt (getMotionUnscaled :209-231); the constant-velocity prior
+        where RANSAC fails."""
+        dtype = cv_prior.dtype
+        # the constant-velocity rotation, in the camera frame, breaks the
+        # planar two-fold (R, t) ambiguity of the cheirality vote
+        tcv = rig.T_cam_veh[0].to(dtype)
+        dv = pose_ops.relative(cv_prior, st.last_kf_pose)
+        q_guess = pose_ops.compose(
+            tcv, pose_ops.compose(dv, pose_ops.inverse(tcv)))[:4]
+        res = estimate_essential(
+            st.last_kf_uv, uvd[:, :2], valid & st.last_kf_uv_valid,
+            rig.focal[0].to(dtype), rig.principal[0].to(dtype),
+            num_hypotheses=pc.scan_num_hypotheses,
+            thres_px=pc.ransac_thres_px, min_flow_px=pc.min_flow_px,
+            q_guess=q_guess)
+        dt_kf = torch.clamp_min((stamp - st.last_kf_stamp).to(dtype), 1e-3)
+        # scale trust is a freshness question: while keyframes arrive on
+        # schedule the measured speed applies unchanged; after a gap (a
+        # standstill) the displacement is bounded by the budget floor
+        kf_period = cfg.keyframe_selection.time_between_keyframes_sec
+        speed_eff = torch.where(
+            dt_kf <= 2.5 * kf_period, st.speed,
+            torch.minimum(st.speed, pc.guard_floor_m / dt_kf))
+        delta = motion_prior_unscaled(res, tcv, speed_eff, dt_kf)
+        ess = pose_ops.normalize(pose_ops.compose(delta, st.last_kf_pose))
+        return torch.where(res.ok, ess, cv_prior)
 
     @traced("limo.scan_step")
     def step(st: ScanState, frame):
@@ -343,7 +373,7 @@ def make_scan_step(rig, cfg, prior_mode: Optional[str] = None):
 
         # ---- 1. prior (mono_lidar.cpp:155-187); an external prior
         # (mono_lidar.cpp:119-150) overrides the internal estimate ----------
-        if prior_mode == "constant_velocity":
+        if prior_mode in ("constant_velocity", "essential"):
             # plausibility clamp: a glitched frame must not teleport the
             # prior out of the solver's basin
             tv = st.vel[4:]
@@ -365,6 +395,8 @@ def make_scan_step(rig, cfg, prior_mode: Optional[str] = None):
             prior = pose_ops.normalize(pose_ops.compose(vel, st.cur_pose))
         else:  # "identity" — no motion model
             prior = st.cur_pose
+        if prior_mode == "essential":
+            prior = essential_prior(st, uvd, valid, stamp, prior)
         prior = torch.where(st.n_kf > 0, prior, identity)
         prior = torch.where(ext_prior_ok, ext_prior.to(dtype), prior)
 

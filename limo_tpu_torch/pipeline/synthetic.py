@@ -6,19 +6,20 @@ device-free equivalent of the reference's test generators
 (keyframe_bundle_adjustment.cpp:232-417) extended to full sequences.
 
 A copy of the reference package's ``limo_tpu/pipeline/synthetic.py`` (the
-world and the dense track tensors; its ``SyntheticTracker`` needs the
-tracklet container and is left out), so that a drive is built without that
+world, ``SyntheticTracker`` and the dense track tensors; its packed variant
+``dense_tracks_packed`` is left out), so that a drive is built without that
 package: the same seed gives the same arrays, bit for bit.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 
 from ..geometry import pose_host
+from .tracklets import Tracklets
 
 # KITTI-ish camera: vehicle x-forward/z-up → camera z-forward/y-down
 R_CAM_VEH = np.array([[0.0, -1.0, 0.0],
@@ -194,6 +195,89 @@ def make_world(num_frames: int = 60, hz: float = 10.0, speed: float = 10.0,
         labels=label_arr,
         velocities=vel_arr if np.any(vel_arr) else None,
         cam_height=cam_height)
+
+
+class SyntheticTracker:
+    """Simulates the external viso2 front end: projects visible landmarks and
+    maintains tracks with global ids = landmark indices. Emits ``Tracklets``
+    with the newest-first stamp window (max length 100, matching
+    config_feature_matching.yaml)."""
+
+    def __init__(self, world: SyntheticWorld, pixel_noise: float = 0.3,
+                 depth_noise: float = 0.03, with_depth: bool = False,
+                 depth_fraction: float = 0.6, max_track_length: int = 100,
+                 max_range: float = 80.0, seed: int = 1,
+                 outlier_fraction: float = 0.0, label_ground: bool = True,
+                 T_cam_veh: Optional[np.ndarray] = None, id_offset: int = 0):
+        """T_cam_veh overrides the world's camera extrinsics (one tracker
+        per camera of a multi-cam rig); id_offset namespaces the emitted
+        global track ids (= world landmark index + offset)."""
+        self.w = world
+        self.T_cam_veh = (np.asarray(T_cam_veh, np.float64)
+                          if T_cam_veh is not None else world.T_cam_veh)
+        self.id_offset = id_offset
+        self.pixel_noise = pixel_noise
+        self.depth_noise = depth_noise
+        self.with_depth = with_depth
+        self.depth_fraction = depth_fraction
+        self.max_track_length = max_track_length
+        self.max_range = max_range
+        self.label_ground = label_ground
+        self.rng = np.random.default_rng(seed)
+        M = world.landmarks.shape[0]
+        self.has_depth_sensor = self.rng.uniform(size=M) < depth_fraction
+        self.outlier_tracks = self.rng.uniform(size=M) < outlier_fraction
+        self._frames: List[Tuple[float, np.ndarray, np.ndarray, np.ndarray]] = []
+
+    def observe(self, frame_idx: int) -> None:
+        w = self.w
+        T_cam_origin = pose_host.compose(self.T_cam_veh,
+                                         w.poses_veh[frame_idx])
+        p_cam = pose_host.apply(T_cam_origin, w.landmarks_at(frame_idx))
+        z = p_cam[:, 2]
+        uv = w.focal * p_cam[:, :2] / np.maximum(z[:, None], 1e-6) + w.principal
+        W, H = w.image_size
+        vis = (z > 1.0) & (z < self.max_range) \
+            & (uv[:, 0] >= 0) & (uv[:, 0] < W) & (uv[:, 1] >= 0) & (uv[:, 1] < H)
+        uv = uv + self.rng.normal(0, self.pixel_noise, uv.shape)
+        if np.any(self.outlier_tracks):
+            bad = self.outlier_tracks & vis
+            uv[bad] += self.rng.uniform(20, 60, (int(bad.sum()), 2))
+        d = np.full(uv.shape[0], -1.0)
+        if self.with_depth:
+            dm = vis & self.has_depth_sensor
+            d[dm] = z[dm] + self.rng.normal(0, self.depth_noise, int(dm.sum()))
+        self._frames.insert(0, (w.stamps[frame_idx], uv, d, vis))
+        if len(self._frames) > self.max_track_length:
+            self._frames.pop()
+
+    def tracklets(self) -> Tracklets:
+        S = len(self._frames)
+        M = self.w.landmarks.shape[0]
+        seen = np.zeros(M, bool)
+        for _, _, _, vis in self._frames:
+            seen |= vis
+        ids = np.flatnonzero(seen)
+        N = ids.shape[0]
+        uvd = np.zeros((N, S, 3))
+        uvd[..., 2] = -1.0
+        mask = np.zeros((N, S), bool)
+        stamps = np.array([f[0] for f in self._frames])
+        for si, (_, uv, d, vis) in enumerate(self._frames):
+            sel = vis[ids]
+            mask[:, si] = sel
+            uvd[sel, si, :2] = uv[ids[sel]]
+            uvd[sel, si, 2] = d[ids[sel]]
+        age = mask.sum(1).astype(np.int32)
+        label = np.full(N, -2, np.int32)
+        if self.label_ground:
+            if self.w.labels is not None:
+                label = self.w.labels[ids].astype(np.int32).copy()
+            else:
+                label[self.w.is_ground[ids]] = 7  # cityscapes road
+        return Tracklets(stamps=stamps, uvd=uvd, mask=mask,
+                         ids=ids.astype(np.int64) + self.id_offset, age=age,
+                         is_outlier=np.zeros(N, bool), label=label)
 
 
 def dense_tracks(world: SyntheticWorld, num_rows: int,

@@ -14,10 +14,14 @@ The ``*_from_numpy`` functions carry state across from the reference
 package: they take its ``Window``/``Selection``/``CameraRig`` as numpy
 arrays (any object with the same field names) and a ``LimoConfig`` given as
 ``dataclasses.asdict``, so that both packages can be fed identical state.
+The host engine's state (``BundleAdjuster``, the odometry drivers,
+``FeatureTracker``) is numpy mirrors and Python bookkeeping on both sides,
+copied across attribute by attribute.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import NamedTuple
 
@@ -186,3 +190,65 @@ def config_from_dict(d: dict) -> LimoConfig:
               for k, v in d[f.name].items()}
         groups[f.name] = type(getattr(default, f.name))(**kv)
     return LimoConfig(**groups)
+
+
+# the host state of a BundleAdjuster: numpy mirrors of the Window, the slot
+# allocator's bookkeeping, the archive and the last selection
+BUNDLE_ADJUSTER_STATE = (
+    "_stamps", "_poses", "_kf_valid", "_fixation", "_planes", "_plane_valid",
+    "_lm_pos", "_lm_valid", "_lm_weight", "_lm_has_depth", "_lm_is_gp",
+    "_lm_id", "_lm_known", "_lm_outlier", "_obs", "_obs_mask", "_kf_order",
+    "_lm_slot", "_archive", "_last_selection", "_last_categories",
+    "_unselected_counts", "_unselected_last_seen")
+ODOMETRY_STATE = ("_last_solve_stamp", "_last_frame_stamp")
+
+
+def _torch_dtype(dtype):
+    return torch.float64 if np.dtype(dtype) == np.float64 else torch.float32
+
+
+def bundle_adjuster_from_numpy(ba, device="cuda"):
+    """The port's BundleAdjuster holding the reference package's
+    BundleAdjuster's host state (a deep copy), rig, config and float type."""
+    from .window_manager import BundleAdjuster
+    out = BundleAdjuster(rig_from_numpy(ba.rig, device),
+                         config_from_dict(dataclasses.asdict(ba.cfg)),
+                         _torch_dtype(ba.dtype), device)
+    for k in BUNDLE_ADJUSTER_STATE:
+        setattr(out, k, copy.deepcopy(getattr(ba, k)))
+    return out
+
+
+def odometry_from_numpy(odo, device="cuda"):
+    """The port's MonoOdometry or LidarOdometry (the reference's class name)
+    holding the reference package's driver's host state: its adjuster
+    (:func:`bundle_adjuster_from_numpy`), trajectory and stamps."""
+    from .pipeline import odometry
+    adjuster = bundle_adjuster_from_numpy(odo.adjuster, device)
+    out = getattr(odometry, type(odo).__name__)(
+        adjuster.rig, adjuster.cfg, adjuster.dtype, device)
+    out.adjuster = adjuster
+    out.trajectory = [odometry.FrameResult(r.stamp, np.array(r.pose),
+                                           r.is_keyframe, r.solved)
+                      for r in odo.trajectory]
+    for k in ODOMETRY_STATE:
+        setattr(out, k, getattr(odo, k))
+    return out
+
+
+def feature_tracker_from_numpy(tr, device="cuda", dtype=torch.float32):
+    """The port's FeatureTracker holding the reference package's tracker's
+    state: its TrackletBuilder's fields (deep copies) and the previous
+    frame's features."""
+    from .frontend.tracker import FeatureTracker, Features, TrackerConfig
+    from .pipeline.tracklets import TrackletBuilder
+    out = FeatureTracker(TrackerConfig(**dataclasses.asdict(tr.cfg)),
+                         tr.builder.max_track_length, device, dtype)
+    out.builder = TrackletBuilder.__new__(TrackletBuilder)
+    out.builder.__dict__.update(copy.deepcopy(vars(tr.builder)))
+    if tr._prev is not None:
+        out._prev = Features(*[torch.as_tensor(np.array(x), device=device)
+                               for x in tr._prev])
+        out._prev_valid_np = np.array(tr._prev_valid_np)
+    return out
+

@@ -315,3 +315,101 @@ def test_scan_drive_repeats_on_card(cuda):
                   "pose", "cost"):
         assert torch.equal(getattr(runs[0], field), getattr(runs[1], field))
     assert int(runs[0].is_keyframe.sum()) >= 2
+
+
+def _projected_drive(n_kf=4, n_lm=60, seed=0):
+    """test_window_manager.py's drive: keyframes 1.2 m apart along z and
+    landmarks ahead, as tracklets of their exact projections and depths
+    (newest stamp first). Returns (poses, stamps, Tracklets)."""
+    import numpy as np
+    from limo_tpu_torch.geometry import pose_host
+    from limo_tpu_torch.pipeline.tracklets import Tracklets
+    rng = np.random.default_rng(seed)
+    lms = rng.uniform(-1, 1, (n_lm, 3)) * [10.0, 6.0, 4.0] + [0, 0, 25.0]
+    poses = [np.array([1.0, 0, 0, 0, 0, 0, -1.2 * k]) for k in range(n_kf)]
+    stamps = [0.4 * k for k in range(n_kf)]
+    uvd = np.zeros((n_lm, n_kf, 3))
+    for col, k in enumerate(reversed(range(n_kf))):
+        pc = pose_host.apply(poses[k], lms)
+        uvd[:, col, :2] = 600.0 * pc[:, :2] / pc[:, 2:3] + [300.0, 200.0]
+        uvd[:, col, 2] = pc[:, 2]
+    return poses, stamps, Tracklets(
+        stamps=np.asarray(stamps[::-1]), uvd=uvd,
+        mask=np.ones((n_lm, n_kf), bool), ids=np.arange(n_lm),
+        age=np.full(n_lm, n_kf, np.int32), is_outlier=np.zeros(n_lm, bool),
+        label=np.full(n_lm, -2, np.int32))
+
+
+@pytest.mark.gpu
+def test_bundle_adjuster_solve_on_card(cuda):
+    """The host engine's BundleAdjuster on the card: a perturbed 4-keyframe
+    window with depth solved through both kernels (the launch identity),
+    to a lower cost and near the true poses, as the reference package's
+    tests/test_window_manager.py asserts."""
+    import numpy as np
+    from limo_tpu_torch.geometry.camera import CameraRig
+    from limo_tpu_torch.window_manager import (FIX_NONE, FIX_POSE,
+                                               BundleAdjuster)
+    poses, stamps, tl = _projected_drive()
+    rng = np.random.default_rng(42)
+    ba = BundleAdjuster(CameraRig.single(600.0, 300.0, 200.0, device=cuda),
+                        LimoConfig(), torch.float32, cuda)
+    for k in range(4):
+        p = poses[k].copy()
+        if k >= 2:
+            p[4:] += rng.normal(0, 0.1, 3)
+        ba.push(stamps[k], tl, p, FIX_POSE if k == 0 else FIX_NONE)
+    ba.deactivate_keyframes()
+    before = dict(ca.launches)
+    info = ba.solve()
+    assert ca.launches["assemble_obs"] - before["assemble_obs"] \
+        == info.n_iterations
+    assert ca.launches["cost_obs"] - before["cost_obs"] \
+        == 1 + info.n_iterations + info.n_rounds
+    assert float(info.final_cost) <= float(info.initial_cost)
+    for k, s in enumerate(ba._kf_order):
+        assert np.linalg.norm(ba._poses[s][4:] - poses[k][4:]) < 0.05
+
+
+@pytest.mark.gpu
+def test_estimate_essential_on_card(cuda):
+    """One batched 5-point RANSAC (256 hypotheses: batched SVDs of
+    [256,5,9], determinants of [256,24,10,10], solves of [256,10,9,9]) on
+    the card in f64 and f32 against the CPU's f64 call on
+    test_essential.py's rotation + translation scene. The nullspace basis
+    the card's linear algebra returns is its own, so the results are held
+    as tests/test_torch_essential.py holds two bases: ok equal, rotation
+    within 5e-3 rad (f32: 1e-2), translation direction within 8e-2 rad
+    (f32: 0.15), at most 6 (f32: 12) of 200 inlier flags flipped."""
+    import numpy as np
+    from limo_tpu_torch.frontend.essential import estimate_essential
+    rng = np.random.default_rng(42)
+    a = 0.05
+    R = np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0],
+                  [-np.sin(a), 0, np.cos(a)]])
+    t = np.array([0.2, 0.0, -1.0]) / np.linalg.norm([0.2, 0.0, -1.0])
+    pts = rng.uniform(-1, 1, (200, 3)) * [8.0, 5.0, 6.0] + [0, 0, 15.0]
+    x1 = pts @ R.T + t
+    uv0 = 600.0 * pts[:, :2] / pts[:, 2:] + [300.0, 200.0]
+    uv1 = 600.0 * x1[:, :2] / x1[:, 2:] + [300.0, 200.0]
+    uv0 = uv0 + rng.normal(0, 0.3, uv0.shape)
+    uv1 = uv1 + rng.normal(0, 0.3, uv1.shape)
+
+    def run(device, dtype):
+        on = lambda x: torch.as_tensor(x, dtype=dtype, device=device)
+        return estimate_essential(on(uv0), on(uv1),
+                                  torch.ones(200, dtype=torch.bool,
+                                             device=device),
+                                  on(600.0), on([300.0, 200.0]))
+
+    ref = run("cpu", torch.float64)
+    assert bool(ref.ok)
+    for dtype, rot, tra, flips in ((torch.float64, 5e-3, 8e-2, 6),
+                                   (torch.float32, 1e-2, 0.15, 12)):
+        got = run(cuda, dtype)
+        q0, q1 = ref.q.numpy(), got.q.double().cpu().numpy()
+        t0, t1 = ref.t.numpy(), got.t.double().cpu().numpy()
+        assert bool(got.ok)
+        assert 2 * np.arccos(min(abs(float(np.dot(q0, q1))), 1.0)) <= rot
+        assert np.arccos(min(float(np.dot(t0, t1)), 1.0)) <= tra
+        assert int((got.inliers.cpu() != ref.inliers).sum()) <= flips

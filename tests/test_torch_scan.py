@@ -60,11 +60,11 @@ def test_depth_drive_free_running():
 def test_prior_modes():
     """"identity" runs the step with no motion model: the prior of every
     frame after the first is the last pose; the 5-point "essential" prior
-    is not part of the port and raises."""
+    runs (tests/test_torch_essential.py holds it to the reference); an
+    unknown mode raises."""
     chans, rig, cfg, _ = scan_drive("depth", num_frames=4)
     trig, tcfg = port_of(rig, cfg)
-    with pytest.raises(NotImplementedError):
-        tso.make_scan_step(trig, tcfg, prior_mode="essential")
+    ess = tso.make_scan_step(trig, tcfg, prior_mode="essential")
     with pytest.raises(ValueError):
         tso.make_scan_step(trig, tcfg, prior_mode="bogus")
     step = tso.make_scan_step(trig, tcfg, prior_mode="identity")
@@ -78,3 +78,8 @@ def test_prior_modes():
         st, out = step(st, tuple(x[i] for x in xs))
         if i > 0:
             assert torch.equal(out.prior, last)
+    st = tso.init_state(tcfg.capacity, torch.float64,
+                        tcfg.prior.default_speed, "cpu")
+    for i in range(4):
+        st, out = ess(st, tuple(x[i] for x in xs))
+        assert bool(torch.isfinite(out.pose).all())

@@ -178,3 +178,48 @@ def test_port_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_host_engine_imports_no_jax():
+    """The host engine's modules, imported one by one in a fresh process,
+    provide the reference package's public names and pull in neither JAX
+    nor the reference package."""
+    code = (
+        "import importlib, sys\n"
+        "names = {\n"
+        "  'limo_tpu_torch.frontend.essential': ['estimate_essential',\n"
+        "      'motion_prior_unscaled', 'EssentialResult'],\n"
+        "  'limo_tpu_torch.frontend.tracker': ['FeatureTracker',\n"
+        "      'MulticamFeatureTracker'],\n"
+        "  'limo_tpu_torch.frontend.semantics': ['attach_labels'],\n"
+        "  'limo_tpu_torch.selection.keyframe': ['select_keyframes'],\n"
+        "  'limo_tpu_torch.window_manager': ['BundleAdjuster',\n"
+        "      'NotEnoughKeyframesException', 'KeyframeNotFoundException'],\n"
+        "  'limo_tpu_torch.pipeline.odometry': ['MonoOdometry',\n"
+        "      'LidarOdometry', 'FrameResult'],\n"
+        "  'limo_tpu_torch.pipeline.full': ['LimoPipeline'],\n"
+        "  'limo_tpu_torch.pipeline.executor': ['run_pipelined',\n"
+        "      'PrefetchExecutor'],\n"
+        "  'limo_tpu_torch.pipeline.tracklets': ['Tracklets',\n"
+        "      'TrackletBuilder', 'merge_tracklets', 'filter_tracklets'],\n"
+        "  'limo_tpu_torch.pipeline.synthetic': ['SyntheticTracker'],\n"
+        "  'limo_tpu_torch.pipeline.render': ['write_kitti_sequence'],\n"
+        "  'limo_tpu_torch.pipeline.evaluation': ['evaluate_kitti_sequence',\n"
+        "      'evaluate_synthetic_sequence', 'batch_evaluate_synthetic',\n"
+        "      'SequenceReport'],\n"
+        "  'limo_tpu_torch.io.kitti': ['KittiSequence', 'read_poses',\n"
+        "      'write_poses', 'read_velodyne'],\n"
+        "  'limo_tpu_torch.io.png': ['read_png', 'write_png'],\n"
+        "  'limo_tpu_torch.utils.diagnostics': ['DiagnosticUpdater'],\n"
+        "  'limo_tpu_torch.entry': ['kitti_host_drive'],\n"
+        "}\n"
+        "for mod, attrs in names.items():\n"
+        "    m = importlib.import_module(mod)\n"
+        "    missing = [a for a in attrs if not hasattr(m, a)]\n"
+        "    assert not missing, (mod, missing)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'limo_tpu', '__graft_entry__', 'PIL')]\n"
+        "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
