@@ -76,7 +76,27 @@ Phases (any failure ends the run with a non-zero exit, and no result):
    frame pairs on the card (f64 and f32) against the port's f64 call on
    the CPU, one call profiled (device time, launches); then
    ``evaluate_kitti_sequence(engine="fused")`` over the same sequence with
-   its launch identity.
+   its launch identity;
+9. many sequences, the tuning grid and the long drive, each cut in length
+   only: ``run_batch`` over two scan drives (``entry.scan_drive``'s world
+   and a second seed, 20 x 1536, ``BATCH_FRAMES`` frames each), each
+   element bit-identical to ``run_sequence`` of its sequence, the launch
+   identity summed over both (``run_batch`` is ``run_fleet`` on one card,
+   and a fleet's default devices are every visible card);
+   ``run_tuning_grid`` on ``grid_search_fused``'s world
+   (12 x 512, labelled vegetation, ``TUNE_FRAMES`` frames) over the
+   default point, non-default thresholds (0.10 / 1.0) and a non-default
+   shrubbery weight (0.3), each point bit-identical to ``run_sequence``
+   under ``apply_point``'s config, both kernels against their plain
+   versions on the first window of each non-default point (the loss scales
+   reach the kernels as runtime scalars, the shrubbery weight through the
+   landmark weights), the ``GridPoint`` metrics; ``evaluate_long_drive``
+   at 12 x 768 over ``LONG_FRAMES`` frames (rows reused), with the
+   launch identity, ms per frame split by solve, host syncs per frame
+   (sync debug mode, in the same pass), the kernels on its first window,
+   its first solves against the port's f64 solves on the CPU, and its
+   counts, ATE and drift in a band around the reference package's run of
+   the same drive (``REF_LONG``).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. The profile table and a JSON record of
@@ -237,6 +257,33 @@ HOST_CHECK = 3
 HOST_ESSENTIAL_FRAMES = (15, 30, 45)
 HOST_ESSENTIAL_TOL = {"float64": (2e-2, 0.3, 0.25),
                       "float32": (5e-2, 0.4, 0.4)}
+# phase 9: many sequences, tuning and the long drive, each cut in length
+# only. run_batch over the scan drive's world and a second seed, BATCH_FRAMES
+# frames each, at the scan drive's 20 x 1536
+BATCH_SEEDS = (3, 8)
+BATCH_FRAMES = 12
+# run_tuning_grid on grid_search_fused's world (12 x 512, labelled
+# vegetation), TUNE_FRAMES frames: the default point, non-default
+# thresholds, a non-default shrubbery weight
+TUNE_FRAMES = 30
+TUNE_GRID = ((0.16, 1.6, 0.9), (0.10, 1.0, 0.9), (0.16, 1.6, 0.3))
+# the long drive at 12 x 768 (evaluate_long_drive's defaults), LONG_FRAMES
+# frames: rows are reused after 60 frames, and 120 m hold 100 m segments
+LONG_FRAMES = 120
+LONG_F64_SOLVES = 3
+# the reference package's run of that drive (JAX f32 on the CPU; python
+# scripts/long_drive_cpu.py --package reference --frames 120); 49 rows
+# reused. Other CPU runs of it: the port in f32 32 / 22 / 22, ATE 0.01173 m,
+# 0.0193 %; both packages in f64 33 / 23 / 23, ATE 0.01796 m, 0.0391 %,
+# 0.000157 deg/m (equal to 1e-12). The band holds that spread with a margin;
+# ATE and drift are a few centimetres over two 100 m segments, so their
+# bands are ratios up to 5
+REF_LONG = {"keyframes": 32, "attempted": 22, "accepted": 22,
+            "ate_m": 0.011440, "drift_t_percent": 0.016827,
+            "drift_r_deg_per_m": 0.00028324}
+LONG_BAND = {"keyframes": (0.85, 1.2), "attempted": (0.75, 1.35),
+             "accepted": (0.75, 1.35), "ate_m": (0.0, 5.0),
+             "drift_t_percent": (0.0, 5.0), "drift_r_deg_per_m": (0.0, 5.0)}
 OUT = Path("chiprun_out")
 # each kernel's symbol in the profiler's trace
 SYMBOL = {"assemble_obs": "assemble_obs_kernel", "cost_obs": "cost_obs_kernel",
@@ -504,15 +551,8 @@ def main_path(device):
         results.append(out)
     launches = dict(ca.launches)
 
-    infos = [r[2] for r in results]
-    n_it = sum(i.n_iterations for i in infos)
-    n_rounds = sum(i.n_rounds for i in infos)
-    print(f"launches in {N_SOLVES} solves: {launches} "
-          f"(LM iterations {n_it}, trim rounds {n_rounds})")
-    check(launches["assemble_obs"] == n_it, f"launches {launches}")
-    # cost evaluations: initial + one per LM iteration + one per trim round
-    check(launches["cost_obs"] == N_SOLVES + n_it + n_rounds,
-          f"launches {launches}")
+    check_launch_identity(f"{N_SOLVES} solves", launches,
+                          [r[2] for r in results])
     w0, s0, i0 = results[0]
     for wi, si, ii in results[1:]:
         for a, b in zip(w0, wi):
@@ -698,6 +738,20 @@ def where_time_goes(problem):
     return {"profile": summary or "not measured", "syncs": dict(syncs)}
 
 
+def check_launch_identity(name, launches, infos):
+    """Both kernels launched over the solves whose SolveInfos are
+    ``infos``: one assembly per LM iteration; one cost evaluation per
+    solve (the initial cost), LM iteration and trim round."""
+    n_it = sum(i.n_iterations for i in infos)
+    n_rounds = sum(i.n_rounds for i in infos)
+    print(f"{name}: launches {launches} ({len(infos)} solves, LM iterations "
+          f"{n_it}, trim rounds {n_rounds})")
+    check(all(launches[k] > 0 for k in launches), f"{name}: {launches}")
+    check(launches["assemble_obs"] == n_it, f"{name}: {launches}")
+    check(launches["cost_obs"] == len(infos) + n_it + n_rounds,
+          f"{name}: {launches}")
+
+
 @contextlib.contextmanager
 def recording_solves():
     """Record every solve the scan step attempts: yields a list that gets
@@ -809,15 +863,8 @@ def scan_phase(device, card, errs):
                                            timed=True)
     launches = dict(ca.launches)
     infos = step.stats.solves
-    n_it = sum(i.n_iterations for i in infos)
-    n_rounds = sum(i.n_rounds for i in infos)
     counts = drive_counts(out1)
-    print(f"launches in the drive: {launches} ({len(infos)} attempted "
-          f"solves, LM iterations {n_it}, trim rounds {n_rounds})")
-    check(all(launches[k] > 0 for k in launches), f"launches {launches}")
-    check(launches["assemble_obs"] == n_it, f"launches {launches}")
-    check(launches["cost_obs"] == len(infos) + n_it + n_rounds,
-          f"launches {launches}")
+    check_launch_identity("scan drive", launches, infos)
     check(counts["attempted"] == len(infos), f"{counts} vs {len(infos)}")
     ate = ate_rmse(world.kitti_gt(), so.poses_kitti(out1))
     solve_ms = [m for m, s in zip(frame_ms, out1.cost != 0) if s]
@@ -1168,15 +1215,8 @@ def fused_phase(device, card, errs):
                                                     FUSED_CHUNK, device)
     launches = dict(ca.launches)
     infos = runner.stats.solves
-    n_it = sum(i.n_iterations for i in infos)
-    n_rounds = sum(i.n_rounds for i in infos)
     counts = fused_counts(out1, world)
-    print(f"launches in the drive: {launches} ({len(infos)} solves run, "
-          f"LM iterations {n_it}, trim rounds {n_rounds})")
-    check(all(launches[k] > 0 for k in launches), f"launches {launches}")
-    check(launches["assemble_obs"] == n_it, f"launches {launches}")
-    check(launches["cost_obs"] == len(infos) + n_it + n_rounds,
-          f"launches {launches}")
+    check_launch_identity("fused drive", launches, infos)
 
     solve = (out1.cost != 0).tolist()
     front = [(up + fe) / n for n, up, fe in chunk_ms for _ in range(n)]
@@ -1418,14 +1458,7 @@ def host_phase(device, card, errs):
         drive_s = time.perf_counter() - t0
         launches = dict(ca.launches)
         infos = [out[2] for _, _, out, _, _ in rec["solves"]]
-        n_it = sum(i.n_iterations for i in infos)
-        n_rounds = sum(i.n_rounds for i in infos)
-        print(f"launches in the drive: {launches} ({len(infos)} solves, LM "
-              f"iterations {n_it}, trim rounds {n_rounds})")
-        check(all(launches[k] > 0 for k in launches), f"launches {launches}")
-        check(launches["assemble_obs"] == n_it, f"launches {launches}")
-        check(launches["cost_obs"] == len(infos) + n_it + n_rounds,
-              f"launches {launches}")
+        check_launch_identity("host drive", launches, infos)
 
         results = [r for r, _ in rec["frames"]]
         frame_ms = [m for _, m in rec["frames"]]
@@ -1508,17 +1541,11 @@ def host_phase(device, card, errs):
                 root, str(Path(tmp) / "fused.txt"), gt, cfg=pcfg,
                 drift_kw=KITTI_HOST_DRIFT_KW, engine="fused", device=device)
         fused_launches = dict(ca.launches)
-        f_it = sum(out[2].n_iterations for _, _, out in fused_calls)
-        f_rounds = sum(out[2].n_rounds for _, _, out in fused_calls)
         print(f"fused engine: ATE {frep.ate:.4f} m, drift {frep.drift}, "
-              f"{frep.fps:.2f} frames/s; launches {fused_launches} "
-              f"({len(fused_calls)} solves, LM iterations {f_it}, trim rounds "
-              f"{f_rounds})")
+              f"{frep.fps:.2f} frames/s")
         check(frep.n_frames == F and np.isfinite(frep.ate), "fused engine")
-        check(fused_launches["assemble_obs"] == f_it
-              and fused_launches["cost_obs"]
-              == len(fused_calls) + f_it + f_rounds,
-              f"fused launches {fused_launches}")
+        check_launch_identity("fused engine", fused_launches,
+                              [out[2] for _, _, out in fused_calls])
     return launches, errs, {
         "card": card, "frames": F, "write_s": write_s, "counts": counts,
         "reference": REF_HOST, "band": HOST_BAND, **timing,
@@ -1526,6 +1553,226 @@ def host_phase(device, card, errs):
         "profile": trace or "not measured", "essential": prior,
         "fused": {"ate_m": frep.ate, "drift": frep.drift, "fps": frep.fps,
                   "launches": fused_launches, "solves": len(fused_calls)}}
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: many sequences, the tuning grid and the long drive
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def timed_scan_steps():
+    """Time every frame of every scan step made inside the block (each
+    frame ends in a synchronize): yields a list that gets (wall ms,
+    FrameOut) per frame."""
+    frames, make = [], so.make_scan_step
+
+    def timed_make(*args, **kw):
+        step = make(*args, **kw)
+
+        def timed(st, frame):
+            t0 = time.perf_counter()
+            st, out = step(st, frame)
+            torch.cuda.synchronize()
+            frames.append(((time.perf_counter() - t0) * 1e3, out))
+            return st, out
+
+        timed.stats = step.stats
+        return timed
+
+    so.make_scan_step = timed_make
+    try:
+        yield frames
+    finally:
+        so.make_scan_step = make
+
+
+def counted(fn):
+    """(fn(), kernel launches it made): the counts set to 0 just before and
+    read just after."""
+    torch.cuda.synchronize()
+    for k in ca.launches:
+        ca.launches[k] = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(ca.launches)
+
+
+def trees_equal(a, b):
+    """Two (nested) named tuples of tensors equal bit for bit."""
+    if isinstance(a, torch.Tensor):
+        return a.dtype == b.dtype and torch.equal(a, b)
+    return len(a) == len(b) and all(trees_equal(x, y) for x, y in zip(a, b))
+
+
+def element(tree, b):
+    if isinstance(tree, torch.Tensor):
+        return tree[b]
+    items = [element(x, b) for x in tree]
+    return type(tree)(*items) if hasattr(tree, "_fields") else tuple(items)
+
+
+def batch_check(device):
+    """run_batch over two scan sequences: each element bit for bit
+    run_sequence of its sequence, the launch identity summed over both.
+    run_batch is run_fleet on one card, so a second fleet run would
+    compare the code with itself; the fleet's default devices are checked
+    to be every visible card."""
+    drives = [scan_drive(BATCH_FRAMES, seed=s, device=device)
+              for s in BATCH_SEEDS]
+    rig, cfg = drives[0][3], drives[0][4]
+    check(all(trees_equal(d[3], rig) for d in drives), "rigs differ")
+    sb, ub, vb = (np.stack([d[i] for d in drives]) for i in range(3))
+    t0 = time.perf_counter()
+    with recording_solves() as calls:
+        batch, launches = counted(lambda: so.run_batch(sb, ub, vb, rig, cfg,
+                                                       device=device))
+    batch_s = time.perf_counter() - t0
+    check_launch_identity("run_batch", launches,
+                          [out[2] for _, _, out in calls])
+    for b in range(len(BATCH_SEEDS)):
+        one = so.run_sequence(sb[b], ub[b], vb[b], rig, cfg, device=device)
+        check(trees_equal(element(batch, b), one),
+              f"run_batch element {b} != run_sequence of sequence {b}")
+    cards = [torch.device("cuda", i)
+             for i in range(torch.cuda.device_count())]
+    check(so.fleet_devices() == cards, "a fleet's default devices are not "
+          "every visible card")
+    counts = [drive_counts(element(batch[1], b))
+              for b in range(len(BATCH_SEEDS))]
+    fps = len(BATCH_SEEDS) * BATCH_FRAMES / batch_s
+    print(f"run_batch over seeds {BATCH_SEEDS}, {BATCH_FRAMES} frames each "
+          f"(20 x 1536): {counts}; each element bit-identical to "
+          f"run_sequence; fleet devices {cards}; "
+          f"{batch_s:.1f} s, aggregate {fps:.2f} frames/s")
+    return {"seeds": BATCH_SEEDS, "frames": BATCH_FRAMES, "counts": counts,
+            "launches": launches, "solves": len(calls), "seconds": batch_s,
+            "frames_per_s": fps}
+
+
+def tuning_check(device, errs):
+    """run_tuning_grid on grid_search_fused's world: each point bit for
+    bit run_sequence under apply_point's config, both kernels against
+    their plain versions on the first window of each non-default point,
+    the launch identity, the GridPoint metrics. Returns (record, errs)."""
+    from limo_tpu_torch.pipeline import tuning
+    world, stamps, uvd, valid, labels, cfg = tuning.fused_grid_world(
+        TUNE_FRAMES)
+    rig = CameraRig.single(world.focal, world.principal[0],
+                           world.principal[1], T_cam_veh=world.T_cam_veh,
+                           device=device)
+    t0 = time.perf_counter()
+    with recording_solves() as calls:
+        (_, outs), launches = counted(lambda: so.run_tuning_grid(
+            stamps, uvd, valid, rig, cfg, np.asarray(TUNE_GRID),
+            labels=labels, device=device))
+    grid_s = time.perf_counter() - t0
+    check_launch_identity("run_tuning_grid", launches,
+                          [out[2] for _, _, out in calls])
+    default = (cfg.robust.depth_thres, cfg.robust.reprojection_thres,
+               cfg.regularization.shrubbery_weight)
+    gt = world.kitti_gt()
+    points = []
+    for g, row in enumerate(TUNE_GRID):
+        pcfg = tuning.apply_point(cfg, *row)
+        with recording_solves() as pcalls:
+            _, one = so.run_sequence(stamps, uvd, valid, rig, pcfg,
+                                     labels=labels, device=device)
+        check(trees_equal(element(outs, g), one),
+              f"grid point {row} != run_sequence under apply_point")
+        if tuple(row) != default:
+            w, sel, _ = pcalls[0]
+            errs = check_windows([(f"grid point {row} first window",
+                                   (w, sel, rig, pcfg))], errs)
+        est = so.poses_kitti(one)
+        drift = kitti_drift(gt, est, lengths=(20.0, 30.0), step=5)
+        points.append(tuning.GridPoint(*row, ate=ate_rmse(gt, est),
+                                       drift_t=drift["t_err_percent"],
+                                       drift_r=drift["r_err_deg_per_m"]))
+        print(f"  {points[-1].to_json()}")
+    print(f"run_tuning_grid: {len(TUNE_GRID)} points, {TUNE_FRAMES} frames "
+          f"(12 x 512), each bit-identical to run_sequence under "
+          f"apply_point; {grid_s:.1f} s, {len(TUNE_GRID) / grid_s:.3f} "
+          f"points/s")
+    return {"grid": TUNE_GRID, "frames": TUNE_FRAMES,
+            "points": [json.loads(p.to_json()) for p in points],
+            "launches": launches, "seconds": grid_s,
+            "points_per_s": len(TUNE_GRID) / grid_s}, errs
+
+
+def long_check(device, card, errs):
+    """evaluate_long_drive at 12 x 768: kernels on its first window, its
+    first solves against f64, rows reused, the band around REF_LONG, ms
+    per frame, host syncs per frame, the launch identity. Returns (launches,
+    errs, record)."""
+    t0 = time.perf_counter()
+    with recording_solves() as calls, timed_scan_steps() as frames, \
+            counting_syncs() as syncs:
+        rep, launches = counted(lambda: evaluation.evaluate_long_drive(
+            num_frames=LONG_FRAMES, device=device))
+    drive_s = time.perf_counter() - t0
+    check_launch_identity("long drive", launches,
+                          [out[2] for _, _, out in calls])
+    # the drive's inputs again (rows reused) and its rig and config
+    cfg = evaluation._long_drive_config(768)
+    world, _, _, valid, _ = evaluation._long_drive_inputs(
+        LONG_FRAMES, 10.0, 768, 0, 4.0, 1.0, cfg)
+    rig = CameraRig.single(world.focal, world.principal[0],
+                           world.principal[1], T_cam_veh=world.T_cam_veh,
+                           device=device)
+    frame_ms = [m for m, _ in frames]
+    solved = [bool(out.cost != 0) for _, out in frames]
+    pick = lambda want: [m for m, s in zip(frame_ms, solved) if s == want]
+    n_syncs = sum(syncs.values())
+    outs = so.FrameOut(*[torch.stack(f) for f in zip(*[o for _, o in frames])])
+    counts = drive_counts(outs)
+    starts = (valid[1:] & ~valid[:-1]).sum(axis=0) + valid[0]
+    counts.update(rows_reused=int((starts > 1).sum()), ate_m=rep.ate,
+                  drift_t_percent=rep.drift["t_err_percent"],
+                  drift_r_deg_per_m=rep.drift["r_err_deg_per_m"],
+                  drift_segments=rep.drift["num_segments"])
+    timing = {"ms_per_frame": statistics.median(frame_ms),
+              "ms_per_frame_solve": statistics.median(pick(True)),
+              "ms_per_frame_no_solve": statistics.median(pick(False)),
+              "drive_s": drive_s, "frame_ms": frame_ms,
+              "host_syncs_per_frame": n_syncs / LONG_FRAMES}
+    print(f"{card}: ms per long-drive frame median "
+          f"{timing['ms_per_frame']:.3f} (frames with a solve "
+          f"{timing['ms_per_frame_solve']:.3f} over {sum(solved)}, without "
+          f"{timing['ms_per_frame_no_solve']:.3f}); drive {drive_s:.1f} s; "
+          f"host syncs per frame {n_syncs / LONG_FRAMES:.2f} (sync debug "
+          f"mode; by caller {dict(syncs.most_common(6))}); launches per "
+          f"frame {launches['assemble_obs'] / LONG_FRAMES:.2f} / "
+          f"{launches['cost_obs'] / LONG_FRAMES:.2f}")
+    print(f"counts {counts}")
+    print(f"reference package (JAX f32, CPU): {REF_LONG}")
+    check(len(frame_ms) == LONG_FRAMES, "frames missing")
+    check(bool(torch.isfinite(outs.pose).all()), "non-finite pose")
+    check(counts["rows_reused"] > 0, "no row reused")
+    for key, (lo, hi) in LONG_BAND.items():
+        check(lo <= counts[key] / REF_LONG[key] <= hi,
+              f"{key} {counts[key]} outside [{lo}, {hi}] x the reference's "
+              f"{REF_LONG[key]}")
+    errs = check_windows([("long drive solve 0 (frame window)",
+                           (calls[0][0], calls[0][1], rig, cfg))], errs)
+    print(f"the first {LONG_F64_SOLVES} solves against the port's f64 solve "
+          f"on the CPU:")
+    solves = against_f64(calls[:LONG_F64_SOLVES], rig, cfg)
+    return launches, errs, {
+        "card": card, "frames": LONG_FRAMES, "counts": counts,
+        "reference": REF_LONG, "band": LONG_BAND, **timing,
+        "launches": launches, "syncs": dict(syncs), "solves": solves,
+        "fps": rep.fps}
+
+
+def many_phase(device, card, errs):
+    """Phase 9. Returns (long-drive launches, the updated kernel errors,
+    the phase's record)."""
+    batch = batch_check(device)
+    print(f"(at {time.perf_counter() - T0:.1f} s)")
+    tune, errs = tuning_check(device, errs)
+    print(f"(at {time.perf_counter() - T0:.1f} s)")
+    launches, errs, long = long_check(device, card, errs)
+    return launches, errs, {"batch": batch, "tuning": tune, "long": long}
 
 
 def main():
@@ -1541,7 +1788,7 @@ def main():
 
 
 def run(device, card):
-    """Phases 2-8 on ``device``; prints the result lines."""
+    """Phases 2-9 on ``device``; prints the result lines."""
     phase("build")
     b = ca.build()
     print(f"built {b.path.name} in {b.seconds:.1f} s")
@@ -1570,6 +1817,9 @@ def run(device, card):
     phase(f"host engine at full width: KITTI layout on disk, {HOST_FRAMES} "
           f"frames, f32")
     host_launches, errs, host_rec = host_phase(device, card, errs)
+
+    phase("many sequences, the tuning grid and the long drive on the card")
+    long_launches, errs, many_rec = many_phase(device, card, errs)
     for name, r in records.items():
         r["max_abs_err"], r["max_rel_err"] = errs[name]
         r["scan_launches"] = scan_launches[name]
@@ -1579,12 +1829,16 @@ def run(device, card):
                                          / fused_rec["frames"])
         r["host_launches"] = host_launches[name]
         r["host_launches_per_frame"] = host_launches[name] / host_rec["frames"]
+        r["long_launches"] = long_launches[name]
+        r["long_launches_per_frame"] = long_launches[name] / LONG_FRAMES
+        r["batch_launches"] = many_rec["batch"]["launches"][name]
+        r["tuning_launches"] = many_rec["tuning"]["launches"][name]
 
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "kernels": list(records.values()), "solve": solve,
          "profile": prof, "scan": scan, "fused": fused_rec,
-         "host": host_rec}, indent=1))
+         "host": host_rec, "many": many_rec}, indent=1))
     print(card)
     print(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -42,7 +42,7 @@ from .frontend.lidar_depth import LidarDepthConfig
 from .frontend.tracker import TrackerConfig
 from .geometry import pose as pose_ops
 from .geometry.camera import CameraRig
-from .pipeline.evaluation import make_km_rendered_world
+from .pipeline.evaluation import make_km_rendered_world, rendered_drive_config
 from .pipeline.full import LimoPipelineConfig
 from .pipeline.render import SequenceRenderer, write_kitti_sequence
 from .pipeline.synthetic import dense_tracks, make_world
@@ -206,26 +206,20 @@ def scan_drive(num_frames=60, seed=3, with_depth=True, dtype=torch.float32,
 
 def fused_drive(num_frames=200, seed=11, device="cuda"):
     """The full-width fused drive, as the reference package's
-    ``evaluation.evaluate_rendered_long_drive`` builds it: ``LimoConfig()``
-    (20 keyframe slots × 1536 landmark slots × 1 camera) with a 1.65 m
-    camera height and a 12 m/s default speed; 384 features (border 8, NMS
-    radius 5); the default lidar depth; the groundplane on; clouds padded
-    to 16384 points; labels on. The world is ``make_km_rendered_world(
+    ``evaluation.evaluate_rendered_long_drive`` builds it: the configuration
+    of :func:`~.pipeline.evaluation.rendered_drive_config` (``LimoConfig()``,
+    20 keyframe slots × 1536 landmark slots × 1 camera, with a 1.65 m
+    camera height and a 12 m/s default speed; 384 features, border 8, NMS
+    radius 5; the default lidar depth; the groundplane on; clouds padded
+    to 16384 points), labels on. The world is ``make_km_rendered_world(
     num_frames, seed=seed)`` (a ramp, a standstill and two turns, scaled to
     ``num_frames``) rendered at 512 × 192, f = 450, clouds drawn from
     ``np.random.default_rng(seed)``. Returns (stamps [F], images_u8
     [F,H,W], clouds (a list of [Ni,3] vehicle-frame scans), label_images
     [F,H,W] uint8, rig on ``device``, cfg, pcfg, world)."""
     world, _ = make_km_rendered_world(num_frames, seed=seed)
-    cfg = LimoConfig(
-        landmark_selection=dataclasses.replace(
-            LandmarkSelectionConfig(), height_over_ground=1.65),
-        prior=dataclasses.replace(PriorConfig(), default_speed=12.0))
-    pcfg = LimoPipelineConfig(
-        limo=cfg,
-        tracker=TrackerConfig(max_features=384, border=8, nms_radius=5),
-        lidar=LidarDepthConfig(), use_groundplane=True,
-        cloud_capacity=16384)
+    pcfg = rendered_drive_config()
+    cfg = pcfg.limo
     rend = SequenceRenderer(world)
     rng = np.random.default_rng(seed)
     W, H = world.image_size

@@ -588,11 +588,171 @@ def run_sequence(stamps, uvd_seq, valid_seq, rig, cfg, priors=None,
     xs = frame_arrays(stamps, uvd_seq, valid_seq, cfg, dtype, labels,
                       outlier_flags, planes, planes_ok, priors, prior_valid,
                       stamp_dtype=st.window.stamps.dtype, device=device)
+    return _run_frames(step, st, xs)
+
+
+def _run_frames(step, st, xs):
+    """``step`` over every frame of the channels ``xs`` from state ``st``:
+    (final state, FrameOut with a frame axis)."""
     outs = []
-    for i in range(len(stamps)):
+    for i in range(xs[0].shape[0]):
         st, out = step(st, tuple(x[i] for x in xs))
         outs.append(out)
     return st, FrameOut(*[torch.stack(f) for f in zip(*outs)])
+
+
+def _stack(trees, device):
+    """Stack equal-structured (nested) named tuples of tensors along a new
+    leading axis, on ``device``."""
+    first = trees[0]
+    if isinstance(first, torch.Tensor):
+        return torch.stack([t.to(device) for t in trees])
+    return type(first)(*[_stack(list(f), device) for f in zip(*trees)])
+
+
+def run_batch(stamps_b, uvd_b, valid_b, rig, cfg, priors_b=None,
+              prior_valid_b=None, dtype=torch.float32, labels_b=None,
+              outlier_flags_b=None, planes_b=None, planes_ok_b=None,
+              device="cuda"):
+    """Many sequences, one result: every input has a leading batch axis
+    ``B`` (numpy, as :func:`run_sequence` takes them) and the result is
+    (final ScanState [B,...], FrameOut [B,F,...]) on ``device`` (``rig`` is
+    copied there if it lives elsewhere) — the reference's serial
+    per-sequence evaluation loop behind one call. :func:`run_fleet` on the
+    one device ``[device]``.
+
+    The reference vmaps one compiled ``lax.scan`` over the batch. This step
+    cannot be vmapped: it reads ``do_solve`` on the host every frame and
+    runs the windowed solve only when it is set, and the trimmed solve
+    reads its phase flags on the host (``solver/trimmed.py``,
+    ``solver/lm.py``). So the batch is a loop over :func:`run_sequence`,
+    one sequence after another, and element *b* is bit for bit
+    ``run_sequence`` of sequence *b*: no lane pays another's solves or LM
+    iterations, as vmap's both-branch selects and batch-max loops make
+    them. The cost is B times one sequence: the card idles between the
+    host's launches, and a masked solve across sequences that would fill
+    it is not built (ROADMAP). The reference's ``vmap_chunk`` bounds the
+    width of the vmapped group; with no vmap there is no width to bound,
+    so it has no counterpart."""
+    return run_fleet(stamps_b, uvd_b, valid_b, rig, cfg, priors_b,
+                     prior_valid_b, dtype, labels_b, outlier_flags_b,
+                     planes_b, planes_ok_b, devices=[device])
+
+
+def fleet_devices(devices=None):
+    """The devices of a fleet: ``devices`` as torch devices, else every
+    visible card; raises when there is none (a fleet never falls back to
+    the CPU unless the caller names it)."""
+    if devices is None:
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
+        if not devices:
+            raise RuntimeError("run_fleet: no visible CUDA device")
+    devices = [torch.device(d) for d in devices]
+    if not devices:
+        raise ValueError("run_fleet: empty device list")
+    return devices
+
+
+def run_fleet(stamps_b, uvd_b, valid_b, rig, cfg, priors_b=None,
+              prior_valid_b=None, dtype=torch.float32, labels_b=None,
+              outlier_flags_b=None, planes_b=None, planes_ok_b=None,
+              devices=None):
+    """A sequence fleet dealt over ``devices`` (default: every visible
+    card) — the reference's serial per-sequence KITTI evaluation loop
+    (kitti_eval_script.sh:54-115) behind one call: sequence *b* runs
+    through :func:`run_sequence` on ``devices[b % D]`` (the rig copied
+    there) and the results are stacked on ``devices[0]``. The list takes
+    the place of the reference's mesh ``data`` axis; there are no
+    cross-sequence collectives.
+
+    The fleet is serial: one host thread runs the sequences one after
+    another (see :func:`run_batch`), so D cards hold the sequences' memory
+    but run no faster than one, and a fleet of B costs B times one
+    sequence on any number of cards. On one card it is :func:`run_batch`.
+    The reference pads the batch to a multiple of the data axis (replaying
+    sequence 0) because GSPMD splits an array evenly; dealing sequences
+    out needs no even split, so there is no padding."""
+    devices = fleet_devices(devices)
+    at = lambda x, b: None if x is None else np.asarray(x)[b]
+    rigs = {}
+    runs = []
+    for b in range(np.asarray(stamps_b).shape[0]):
+        dev = devices[b % len(devices)]
+        if dev not in rigs:
+            rigs[dev] = type(rig)(*[x.to(dev) for x in rig])
+        runs.append(run_sequence(
+            at(stamps_b, b), at(uvd_b, b), at(valid_b, b), rigs[dev], cfg,
+            priors=at(priors_b, b), prior_valid=at(prior_valid_b, b),
+            dtype=dtype, labels=at(labels_b, b),
+            outlier_flags=at(outlier_flags_b, b), planes=at(planes_b, b),
+            planes_ok=at(planes_ok_b, b), device=dev))
+    finals, outs = zip(*runs)
+    return _stack(finals, devices[0]), _stack(outs, devices[0])
+
+
+def make_tuning_runner(rig, cfg):
+    """Build the tuning-scan runner once: ``run(rows, st, xs) -> (final
+    ScanState [G,...], FrameOut [G,F,...])``.
+
+    Grid rows are ``(depth_thres, reprojection_thres)`` or
+    ``(depth_thres, reprojection_thres, shrubbery_weight)`` — the full
+    reference sweep (``res/tune_parameters_kitti.py:3-17``). Each row
+    becomes a config (``tuning.apply_point``; a two-column row keeps
+    ``cfg``'s shrubbery weight) and runs through
+    :func:`make_scan_step` from the one initial state ``st`` over the one
+    set of frame channels ``xs`` (:func:`frame_arrays`), which every row
+    shares and none copies. The loss scales reach the CUDA kernels as
+    runtime scalars (``a2r``, ``a2d``) and the shrubbery weight enters the
+    landmark weights, so every row runs the hand-written kernels."""
+    from .tuning import apply_point
+
+    def run(rows, st, xs):
+        finals, outs = [], []
+        for row in np.asarray(rows, np.float64).tolist():
+            shrub = row[2] if len(row) >= 3 else \
+                cfg.regularization.shrubbery_weight
+            step = make_scan_step(rig, apply_point(cfg, row[0], row[1],
+                                                   shrub))
+            final, out = _run_frames(step, st, xs)
+            finals.append(final)
+            outs.append(out)
+        device = st.cur_pose.device
+        return _stack(finals, device), _stack(outs, device)
+
+    return run
+
+
+def run_tuning_grid(stamps, uvd_seq, valid_seq, rig, cfg, grid,
+                    dtype=torch.float32, labels=None,
+                    outlier_flags=None, planes=None, planes_ok=None,
+                    device="cuda"):
+    """Every tuning grid point over the same sequence, one call.
+
+    The reference's parameter search replays the full dataset once per grid
+    point (``res/tune_parameters_kitti.py:3-17`` × ``kitti_eval_script.sh``).
+    ``grid [G,2]`` rows are ``(depth_thres, reprojection_thres)``,
+    ``grid [G,3]`` adds ``shrubbery_weight``; the sequence's channels are
+    put on ``device`` (where ``rig`` lives) once and shared by every point
+    (:func:`make_tuning_runner`). The points run one after another, each
+    as :func:`run_sequence` would run it under its config.
+
+    The reference splits a wide grid into chunks to stay under a TPU's
+    generated-code ceiling (``max_chunk``, ``CODE_SIZE_BUDGET_MIB``);
+    nothing here is compiled per grid width, so there is no chunking.
+
+    Returns (final ScanState [G,...], FrameOut [G,F,...]) on ``device``.
+    """
+    grid = np.asarray(grid, np.float64)
+    if grid.ndim != 2 or grid.shape[1] not in (2, 3):
+        raise ValueError(f"grid rows must have 2 or 3 columns, got "
+                         f"{grid.shape}")
+    st = init_state(cfg.capacity, dtype, cfg.prior.default_speed, device)
+    run = make_tuning_runner(rig, cfg)
+    data = frame_arrays(stamps, uvd_seq, valid_seq, cfg, dtype, labels,
+                        outlier_flags, planes, planes_ok,
+                        stamp_dtype=st.window.stamps.dtype, device=device)
+    return run(grid, st, data)
 
 
 def poses_kitti(frame_out: FrameOut) -> np.ndarray:

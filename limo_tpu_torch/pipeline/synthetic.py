@@ -6,9 +6,9 @@ device-free equivalent of the reference's test generators
 (keyframe_bundle_adjustment.cpp:232-417) extended to full sequences.
 
 A copy of the reference package's ``limo_tpu/pipeline/synthetic.py`` (the
-world, ``SyntheticTracker`` and the dense track tensors; its packed variant
-``dense_tracks_packed`` is left out), so that a drive is built without that
-package: the same seed gives the same arrays, bit for bit.
+world, ``SyntheticTracker`` and the dense track tensors, identity and
+row-packed), so that a drive is built without that package: the same seed
+gives the same arrays, bit for bit.
 """
 
 from __future__ import annotations
@@ -301,6 +301,43 @@ def dense_tracks(world: SyntheticWorld, num_rows: int,
                              depth_outlier_fraction=depth_outlier_fraction,
                              depth_dropout=depth_dropout)
     return out[:3] + ((out[5],) if with_labels else ())
+
+
+def dense_tracks_packed(world: SyntheticWorld, num_rows: int,
+                        reuse_gap_frames: int,
+                        pixel_noise: float = 0.3, depth_noise: float = 0.03,
+                        with_depth: bool = True, depth_fraction: float = 0.6,
+                        max_range: float = 80.0, seed: int = 1,
+                        min_run: int = 3, with_labels: bool = False,
+                        shrubbery_px_noise: float = 0.0,
+                        depth_outlier_fraction: float = 0.0,
+                        depth_dropout: Optional[Tuple[int, int]] = None):
+    """Row-*packed* dense tracks for long drives: the world may contain far
+    more landmarks than ``num_rows``.
+
+    Each landmark's visibility is split into contiguous *runs* — exactly
+    what a frame-to-frame tracker does: a feature lost and later re-found
+    becomes a NEW track (viso2 contract, §2.12). Runs shorter than
+    ``min_run`` frames are discarded (tracker persistence). Runs are then
+    assigned rows by greedy interval scheduling (first-fit on the
+    earliest-free row); a row is reused only once its previous occupant's
+    last observation is at least ``reuse_gap_frames`` old — i.e. guaranteed
+    evicted from the scan program's keyframe ring, so a reused row never
+    mixes observations of two different 3D points.
+
+    Returns (stamps [F], uvd [F,R,3], valid [F,R], n_dropped, runs [N,4])
+    where ``n_dropped`` counts runs that found no free row (size
+    ``num_rows`` so this stays 0) and ``runs`` rows are
+    (landmark index, first frame, last frame, assigned row); with
+    ``with_labels`` additionally the per-row labels [F,R].
+    """
+    out = _dense_tracks_impl(world, num_rows, reuse_gap_frames, pixel_noise,
+                             depth_noise, with_depth, depth_fraction,
+                             max_range, seed, min_run,
+                             shrubbery_px_noise=shrubbery_px_noise,
+                             depth_outlier_fraction=depth_outlier_fraction,
+                             depth_dropout=depth_dropout)
+    return out if with_labels else out[:5]
 
 
 def _dense_tracks_impl(world, num_rows, reuse_gap_frames, pixel_noise,

@@ -21,6 +21,12 @@ from limo_tpu.state import Window as JaxWindow
 from limo_tpu_torch import state as tstate
 from limo_tpu_torch.pipeline import scan_odometry as tso
 
+# One intra-op thread per test process. The tier-1 run starts six workers
+# on the CPU's cores, and every worker imports this module; PyTorch's
+# default of one thread per core in each oversubscribed the cores many
+# times over.
+torch.set_num_threads(1)
+
 
 def to_torch(w, sel, rig, cfg, device="cpu"):
     """The reference package's (window, sel, rig, cfg) as the port's."""
@@ -225,3 +231,86 @@ def pipeline_config_of(pcfg):
         tracker=TrackerConfig(**kw.pop("tracker")),
         lidar=LidarDepthConfig(**kw.pop("lidar")),
         **{k: tuple(v) if isinstance(v, list) else v for k, v in kw.items()})
+
+
+# ---------------------------------------------------------------------------
+# Many sequences: three small drives for run_batch / run_fleet
+# ---------------------------------------------------------------------------
+
+BATCH_FRAMES, BATCH_ROWS = 30, 256
+BATCH_SEEDS = (2, 3, 5)
+
+
+def batch_drives():
+    """Three 30-frame, 256-row drives with lidar depth (different worlds and
+    track noise) at 12 keyframe slots; each attempts and accepts windowed
+    solves. Returns (stamps [3,F], uvd [3,F,R,3], valid [3,F,R], the
+    reference package's f64 rig, cfg)."""
+    tracks = []
+    for s in BATCH_SEEDS:
+        world = make_world(num_frames=BATCH_FRAMES, speed=8.0, yaw_rate=0.015,
+                           n_landmarks=180, n_ground=50, seed=s)
+        tracks.append(dense_tracks(world, BATCH_ROWS, with_depth=True,
+                                   seed=s + 5))
+    cfg = LimoConfig(capacity=CapacityConfig(
+        max_keyframes=12, max_landmarks=BATCH_ROWS, max_cameras=1))
+    f64 = lambda a: jnp.asarray([a], jnp.float64)
+    rig = JaxRig(focal=f64(world.focal), principal=f64(world.principal),
+                 T_cam_veh=f64(world.T_cam_veh))
+    stack = lambda i: np.stack([t[i] for t in tracks])
+    return stack(0), stack(1), stack(2), rig, cfg
+
+
+def element(tree, b):
+    """Element ``b`` of a batched (nested) named tuple of tensors."""
+    if isinstance(tree, torch.Tensor):
+        return tree[b]
+    items = [element(x, b) for x in tree]
+    return type(tree)(*items) if hasattr(tree, "_fields") else tuple(items)
+
+
+def trees_equal(a, b):
+    """Two (nested) named tuples of tensors equal bit for bit."""
+    if isinstance(a, torch.Tensor):
+        return a.dtype == b.dtype and torch.equal(a, b)
+    return len(a) == len(b) and all(trees_equal(x, y) for x, y in zip(a, b))
+
+
+# ---------------------------------------------------------------------------
+# The tuning grid: small drives and the grid comparison
+# ---------------------------------------------------------------------------
+
+TUNE_ROWS, TUNE_FRAMES = 256, 30
+TUNE_POSE_ATOL = 1e-9
+TUNE_COST_RTOL = 1e-7
+
+
+def f64_rig(world):
+    """A world's single-camera rig as the reference package's, in f64."""
+    f64 = lambda a: jnp.asarray([a], jnp.float64)
+    return JaxRig(focal=f64(world.focal), principal=f64(world.principal),
+                  T_cam_veh=f64(world.T_cam_veh))
+
+
+def tuning_drive():
+    """tests/test_tuning_transforms.py::test_fused_grid_matches_serial's
+    drive: ((stamps, uvd, valid), f64 rig, cfg) at 12 x 256."""
+    cfg = LimoConfig(capacity=CapacityConfig(
+        max_keyframes=12, max_landmarks=TUNE_ROWS, max_cameras=1))
+    world = make_world(num_frames=TUNE_FRAMES, speed=8.0, yaw_rate=0.015,
+                       n_landmarks=180, n_ground=50, seed=2)
+    stamps, uvd, valid = dense_tracks(world, TUNE_ROWS, with_depth=True,
+                                      seed=7)
+    return (stamps, uvd, valid), f64_rig(world), cfg
+
+
+def assert_grid_equal(port, ref):
+    """A tuning grid's FrameOut [G,F,...]: decisions equal, poses within
+    TUNE_POSE_ATOL, costs within TUNE_COST_RTOL (relative)."""
+    for f in SCAN_DISCRETE:
+        np.testing.assert_array_equal(getattr(port, f).numpy(),
+                                      np.asarray(getattr(ref, f)), err_msg=f)
+    np.testing.assert_allclose(port.pose.numpy(), np.asarray(ref.pose),
+                               rtol=0, atol=TUNE_POSE_ATOL)
+    np.testing.assert_allclose(port.cost.numpy(), np.asarray(ref.cost),
+                               rtol=TUNE_COST_RTOL, atol=0)
