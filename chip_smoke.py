@@ -48,8 +48,9 @@ Phases (any failure ends the run with a non-zero exit, and no result):
    solves and its first five solves against the port's f64 solves on the
    CPU; its counts, track statistics and ATE against the reference
    package's run of the same drive; a second pass bit-identical, with its
-   host syncs counted; the first 44 frames in chunks of 16 against one
-   chunk; 10 frames under torch.profiler. To keep the script well inside
+   host syncs counted; the first 44 frames in one chunk bit-identical to
+   the first pass, and in chunks of 16 against one chunk; 10 frames under
+   torch.profiler. To keep the script well inside
    its 1200 s limit, phase 6 runs its drive once (its second pass through
    ``run_sequence`` was cut; phase 7's second pass holds the same step to
    bit-identical repeats), solves only its first five windows in f64 and
@@ -96,7 +97,23 @@ Phases (any failure ends the run with a non-zero exit, and no result):
    (sync debug mode, in the same pass), the kernels on its first window,
    its first solves against the port's f64 solves on the CPU, and its
    counts, ATE and drift in a band around the reference package's run of
-   the same drive (``REF_LONG``).
+   the same drive (``REF_LONG``);
+10. the landmark-sharded solve, the multi-process helpers and the native
+   loader: the bench problem's landmarks split over M = 1, 2 and 4 ranks
+   sharing the card (``parallel.make_shard_map_solver``; one rank in this
+   process, else new processes over ``gloo``; 1536 / M rows each), three
+   solves per rank after a warm-up, with the launch identity per rank,
+   both kernels against their plain versions on each rank's shard, the
+   bench shape on every rank, SolveInfo, poses and planes bit-identical
+   across ranks and the gathered trimmed mask equal to phase 4's; ms per
+   sharded solve and per LM iteration and the collectives' share of a
+   solve's wall time; at M = 4 a data = 2 x model = 2 batched tiny solve
+   with equal elements; at M = 2 a fleet of three 12-frame scan drives
+   (20 x 1536) over the two processes (``process_local_batch``,
+   ``run_fleet``, ``host_local_to_global``), every row on both ranks
+   bit-identical to ``run_sequence`` on the card; the port's native
+   library (``native/limo_native.cpp``, built with g++) loaded, its reads
+   equal to numpy, and phase 8's KITTI reads counted through it.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``. The profile table and a JSON record of
@@ -117,6 +134,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from limo_tpu_torch import window_manager
 from limo_tpu_torch.entry import (KITTI_HOST_DRIFT_KW, fused_drive,
@@ -126,6 +144,14 @@ from limo_tpu_torch.frontend import essential
 from limo_tpu_torch.frontend import tracker as trk
 from limo_tpu_torch.frontend.semantics import dilate_labels, sample_labels
 from limo_tpu_torch.geometry.camera import CameraRig
+from limo_tpu_torch.io import native_loader
+from limo_tpu_torch.parallel import (gather_window, global_mesh,
+                                     host_local_to_global, make_mesh,
+                                     make_shard_map_solver,
+                                     make_sharded_solver, multihost,
+                                     process_local_batch, shard_selection,
+                                     shard_window, spawn)
+from limo_tpu_torch.parallel.multihost import mesh_device
 from limo_tpu_torch.pipeline import evaluation, fused
 from limo_tpu_torch.pipeline import full as host_full
 from limo_tpu_torch.pipeline import odometry as host_odometry
@@ -134,6 +160,7 @@ from limo_tpu_torch.pipeline.full import frontend_depth_plane
 from limo_tpu_torch.pipeline.metrics import ate_rmse, kitti_drift
 from limo_tpu_torch.solver import ba_core, cuda_assemble as ca
 from limo_tpu_torch.solver import solve_trimmed
+from limo_tpu_torch.utils import collectives
 from limo_tpu_torch.window_manager import DEFAULT_OUTLIER_LABELS
 
 # the reference package's solve of this fixture, JAX on the CPU in f64
@@ -284,6 +311,12 @@ REF_LONG = {"keyframes": 32, "attempted": 22, "accepted": 22,
 LONG_BAND = {"keyframes": (0.85, 1.2), "attempted": (0.75, 1.35),
              "accepted": (0.75, 1.35), "ate_m": (0.0, 5.0),
              "drift_t_percent": (0.0, 5.0), "drift_r_deg_per_m": (0.0, 5.0)}
+# phase 10: the bench problem's landmark shards on 1, 2 and 4 ranks sharing
+# the card (gloo), SHARD_SOLVES timed solves each; a fleet over 2 processes
+SHARD_MODELS = (1, 2, 4)
+SHARD_SOLVES = 3
+SHARD_TIMEOUT_S = 300
+FLEET_SEEDS = (3, 8, 13)
 OUT = Path("chiprun_out")
 # each kernel's symbol in the profiler's trace
 SYMBOL = {"assemble_obs": "assemble_obs_kernel", "cost_obs": "cost_obs_kernel",
@@ -587,7 +620,7 @@ def main_path(device):
           f"{int(info_n.n_trimmed)}, cost {c0:.4f} -> {c1:.4f}")
     check(bool(np.isfinite(c1)) and c1 < c0,
           f"no-depth solve did not decrease the cost: {c0} -> {c1}")
-    return launches, (w, sel, rig, cfg), {
+    return launches, (w, sel, rig, cfg), s0.lm_selected.cpu().numpy(), {
         "ms_per_solve": statistics.median(dev_ms), "host_ms": host_ms,
         "device_ms": dev_ms, "iterations": i0.n_iterations,
         "host_syncs": i0.n_host_syncs, "final_cost": final}
@@ -1283,7 +1316,9 @@ def fused_phase(device, card, errs):
           f"{n_syncs}, {n_syncs / F:.2f} per frame; by caller "
           f"{dict(syncs.most_common(8))}")
 
-    # chunked against whole: the first FUSED_CHUNK_FRAMES frames
+    # chunked against whole: the first FUSED_CHUNK_FRAMES frames in one
+    # chunk, bit-identical to pass 1 (chunks of FUSED_CHUNK), and in chunks
+    # of 16 against it
     print(f"chunked against whole (at {time.perf_counter() - T0:.1f} s)")
     nc = FUSED_CHUNK_FRAMES
     part = (stamps[:nc], imgs[:nc], clouds[:nc], rig, cfg, pcfg)
@@ -1296,6 +1331,8 @@ def fused_phase(device, card, errs):
           f"gap {pose_gap:.3g}, bit-identical {outs_equal(out_a, out_b)}; "
           f"one chunk of {nc} against pass 1 (chunks of {FUSED_CHUNK}): "
           f"bit-identical {outs_equal(out_a, first)}")
+    check(outs_equal(out_a, first),
+          f"one chunk of the first {nc} frames differs from pass 1")
     check(pose_gap <= 1e-6
           and torch.equal(out_a.is_keyframe, out_b.is_keyframe)
           and torch.equal(out_a.solved, out_b.solved),
@@ -1775,6 +1812,256 @@ def many_phase(device, card, errs):
     return launches, errs, {"batch": batch, "tuning": tune, "long": long}
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the landmark-sharded solve, the multi-process helpers and the
+# native loader.
+# ---------------------------------------------------------------------------
+
+def rank_solves(model, device_type):
+    """In one rank of a ``model``-rank run on the card: the bench problem's
+    landmark shard (1536 / model rows) solved SHARD_SOLVES times after one
+    warm-up, each through both kernels with its launch identity checked;
+    both kernels against their plain versions on the shard's first window.
+    Returns the rank's record (numpy and Python values)."""
+    mesh = make_mesh(model, data=1, device_type=device_type)
+    device = mesh_device(mesh)
+    w, sel, rig, cfg = make_problem(20, 1536, 12, 800, torch.float32,
+                                    seed=1, device="cpu")
+    ws, ss = shard_window(w, mesh), shard_selection(sel, mesh)
+    solve = make_shard_map_solver(mesh, rig, cfg)
+    solve(ws, ss)                                      # warm-up
+    ms, coll_s, coll_calls, infos = [], [], [], []
+    launches = {k: 0 for k in ca.launches}
+    for _ in range(SHARD_SOLVES):
+        dist.barrier()
+        collectives.stats.update(calls=0, seconds=0.0)
+        t0 = time.perf_counter()
+        (out_w, out_s, info), counts = counted(lambda: solve(ws, ss))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        coll_s.append(collectives.stats["seconds"])
+        coll_calls.append(collectives.stats["calls"])
+        infos.append(info)
+        launches = {k: launches[k] + counts[k] for k in launches}
+    rank = dist.get_rank()
+    check_launch_identity(f"M={model} rank {rank}", launches, infos)
+    for a, b in zip(infos, infos[1:]):
+        check(torch.equal(a.final_cost, b.final_cost)
+              and a.n_iterations == b.n_iterations,
+              f"M={model} rank {rank}: repeated solves differ")
+    rig_d = type(rig)(*[x.to(device) for x in rig])
+    errs = check_windows(
+        [(f"M={model} rank {rank} shard ({ws.L} landmarks)",
+          (ws, ss, rig_d, cfg))],
+        {"assemble_obs": (0.0, 0.0), "cost_obs": (0.0, 0.0)})
+    info = infos[-1]
+    return {"rank": rank, "model": model, "rows": ws.L, "ms": ms,
+            "collective_s": coll_s, "collective_calls": coll_calls,
+            "launches": launches, "errs": errs,
+            "info": {k: (v.cpu().numpy() if torch.is_tensor(v) else v)
+                     for k, v in info._asdict().items()},
+            "poses": out_w.poses.cpu().numpy(),
+            "planes": out_w.planes.cpu().numpy(),
+            "selected": out_s.lm_selected.cpu().numpy()}
+
+
+def rank_tiny_batched(device_type):
+    """data = 2 x model = 2: two equal tiny windows, one per data group;
+    returns their initial and final costs."""
+    mesh = make_mesh(4, data=2, device_type=device_type)
+    w, sel, rig, cfg = make_problem(5, 64, 5, 24, torch.float32,
+                                    device="cpu")
+    two = lambda t: type(t)(*[torch.stack([x, x]) for x in t])
+    out_w, _, info = make_sharded_solver(mesh, rig, cfg)(
+        shard_window(two(w), mesh, batched=True),
+        shard_selection(two(sel), mesh, batched=True))
+    full = gather_window(out_w, mesh, batched=True)
+    check(all(torch.equal(x[0], x[1]) for x in full),
+          "tiny batched solve: the two elements differ")
+    check(bool(torch.isfinite(full.poses).all()
+               and (info.final_cost < info.initial_cost).all()),
+          "tiny batched solve: no decrease")
+    return {"final_cost": info.final_cost.cpu().numpy(),
+            "initial_cost": info.initial_cost.cpu().numpy()}
+
+
+def rank_fleet(device_type):
+    """A fleet of FLEET_SEEDS scan drives over the ranks (data axis): this
+    rank's rows loaded and run here, the batch gathered on every rank."""
+    mesh = global_mesh(data=dist.get_world_size(), model=1,
+                       devices=device_type)
+    device = mesh_device(mesh)
+    B = len(FLEET_SEEDS)
+    start, stop, total = process_local_batch(B, mesh)
+    drives = [scan_drive(BATCH_FRAMES, seed=FLEET_SEEDS[i % B],
+                         device=device) for i in range(start, stop)]
+    rig, cfg = drives[0][3], drives[0][4]
+    final, frames = so.run_fleet(
+        *[np.stack([d[i] for d in drives]) for i in range(3)], rig, cfg,
+        devices=[device])
+    window, frames = host_local_to_global((final.window, frames), mesh)
+    return {"rows": (start, stop, total),
+            "window": [x.cpu().numpy() for x in window],
+            "frames": [x.cpu().numpy() for x in frames]}
+
+
+def sharded_rank(model, device_type):
+    """Phase 10's work in each of ``model`` ranks sharing the card."""
+    if device_type == "cuda":
+        ca.build()           # the parent's build: loaded, not rebuilt
+    out = {"solves": rank_solves(model, device_type)}
+    if model == 4:
+        out["tiny"] = rank_tiny_batched(device_type)
+    if model == 2:
+        out["fleet"] = rank_fleet(device_type)
+    return out
+
+
+def run_ranks(model, device_type):
+    """``sharded_rank`` on ``model`` ranks over gloo: new processes, or
+    this one for a single rank (a process group of one)."""
+    if model > 1:
+        return spawn(sharded_rank, model, "gloo", args=(model, device_type),
+                     timeout_s=SHARD_TIMEOUT_S)
+    with tempfile.TemporaryDirectory() as tmp:
+        multihost.initialize("gloo", f"file://{tmp}/store", 1, 0,
+                             timeout_s=SHARD_TIMEOUT_S)
+        try:
+            return [sharded_rank(1, device_type)]
+        finally:
+            dist.destroy_process_group()
+
+
+def check_sharded(model, ranks, single_mask):
+    """The ranks of one run: the bench shape on each, the replicated
+    results bit-identical across ranks, the gathered trimmed mask equal to
+    phase 4's single-card solve. Returns the run's record."""
+    recs = [r["solves"] for r in ranks]
+    first = recs[0]
+    for rec in recs:
+        info = rec["info"]
+        final = float(info["final_cost"])
+        rel = abs(final - REF_FINAL_COST) / REF_FINAL_COST
+        check(info["n_rounds"] == 1 and int(info["n_trimmed"]) == REF_TRIMMED
+              and rel < 1e-4,
+              f"M={model} rank {rec['rank']}: rounds {info['n_rounds']}, "
+              f"trimmed {int(info['n_trimmed'])}, cost {final} (rel {rel})")
+        for key in ("poses", "planes"):
+            check(np.array_equal(rec[key], first[key]),
+                  f"M={model}: rank {rec['rank']} {key} != rank 0's")
+        for key, value in first["info"].items():
+            check(np.array_equal(rec["info"][key], value),
+                  f"M={model}: rank {rec['rank']} SolveInfo.{key} != rank 0's")
+    mask = np.concatenate([rec["selected"] for rec in recs])
+    check(np.array_equal(mask, single_mask),
+          f"M={model}: trimmed mask != the single-card solve's "
+          f"({int((mask != single_mask).sum())} landmarks differ)")
+    ms = statistics.median(m for rec in recs for m in rec["ms"])
+    iters = first["info"]["n_iterations"]
+    share = statistics.median(c / (m / 1e3) for rec in recs
+                              for c, m in zip(rec["collective_s"], rec["ms"]))
+    calls = first["collective_calls"][-1]
+    per_solve = {k: v / SHARD_SOLVES for k, v in first["launches"].items()}
+    print(f"M={model} ({first['rows']} landmark rows per rank, gloo on one "
+          f"card): {ms:.3f} ms per sharded solve (median over ranks and "
+          f"{SHARD_SOLVES} solves), {iters} LM iterations, {ms / iters:.3f} "
+          f"ms per LM iteration; collectives {calls} per solve, "
+          f"{share:.3f} of its wall time; launches per solve per rank "
+          f"{per_solve}; final cost {float(first['info']['final_cost']):.6f}"
+          f"; ranks bit-identical, mask == single-card solve's")
+    return {"model": model, "rows_per_rank": first["rows"],
+            "ms_per_solve": ms, "iterations": iters,
+            "ms_per_iteration": ms / iters, "collective_calls": calls,
+            "collective_share": share, "launches_per_solve": per_solve,
+            "final_cost": float(first["info"]["final_cost"]),
+            "ms_by_rank": [rec["ms"] for rec in recs]}
+
+
+def check_fleet(device, ranks):
+    """The fleet's rows, on every rank, bit for bit run_sequence of their
+    drives on the card; the padded row replays the first drive."""
+    B = len(FLEET_SEEDS)
+    fleets = [r["fleet"] for r in ranks]
+    check([f["rows"] for f in fleets] == [(0, 2, 4), (2, 4, 4)],
+          f"fleet rows {[f['rows'] for f in fleets]}")
+    for seed in FLEET_SEEDS:
+        stamps, uvd, valid, rig, cfg, _ = scan_drive(BATCH_FRAMES, seed=seed,
+                                                     device=device)
+        final, frames = so.run_sequence(stamps, uvd, valid, rig, cfg,
+                                        device=device)
+        want = [x.cpu().numpy() for x in (*final.window, *frames)]
+        for b in [b for b in range(4) if FLEET_SEEDS[b % B] == seed]:
+            for r, fleet in enumerate(fleets):
+                got = [x[b] for x in (*fleet["window"], *fleet["frames"])]
+                check(all(np.array_equal(g, x) for g, x in zip(got, want)),
+                      f"fleet row {b} (seed {seed}) on rank {r} != "
+                      f"run_sequence")
+    print(f"fleet of {B} {BATCH_FRAMES}-frame scan drives (seeds "
+          f"{FLEET_SEEDS}, 20 x 1536) over 2 processes: every row, on both "
+          f"ranks, bit-identical to run_sequence on the card; the padded "
+          f"row replays seed {FLEET_SEEDS[0]}")
+    return {"seeds": FLEET_SEEDS, "frames": BATCH_FRAMES, "processes": 2}
+
+
+def native_check(host_reads):
+    """The port's native library built and loaded; its velodyne reads equal
+    np.fromfile; phase 8's KITTI reads went through it."""
+    t0 = time.perf_counter()
+    lib = native_loader.get_lib()
+    check(lib is not None, "native library: no g++ on the machine")
+    load_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        paths, scans = [], []
+        for i in range(3):
+            pts = rng.normal(size=(120000 + 1000 * i, 4)).astype(np.float32)
+            paths.append(str(Path(tmp) / f"{i:06d}.bin"))
+            pts.tofile(paths[-1])
+            scans.append(pts)
+        for path, pts in zip(paths, scans):
+            check(np.array_equal(native_loader.read_velodyne(path),
+                                 np.fromfile(path, np.float32).reshape(-1, 4)),
+                  "native read_velodyne != np.fromfile")
+        batch, counts = native_loader.read_velodyne_batch(paths, 125000)
+        check(all(np.array_equal(batch[i, :counts[i]], scans[i])
+                  for i in range(3)), "native batch read != numpy")
+    check(host_reads["numpy"] == 0 and host_reads["native"] >= HOST_FRAMES,
+          f"phase 8's KITTI reads: {host_reads}")
+    print(f"native library {native_loader.library_path().name} (loaded in "
+          f"{load_s:.3f} s after phase 8 built it): read_velodyne and "
+          f"read_velodyne_batch equal numpy; phase 8 read {host_reads['native']}"
+          f" scans through it, {host_reads['numpy']} through numpy")
+    return {"library": native_loader.library_path().name,
+            "phase8_reads": dict(host_reads)}
+
+
+def sharded_phase(device, single_mask, host_reads, errs):
+    """Phase 10. Returns (the updated kernel errors, per-rank launches per
+    solve by model, the phase's record)."""
+    native = native_check(host_reads)
+    runs, launches = {}, {}
+    for model in SHARD_MODELS:
+        t0 = time.perf_counter()
+        ranks = run_ranks(model, device.type)
+        runs[model] = check_sharded(model, ranks, single_mask)
+        runs[model]["seconds"] = time.perf_counter() - t0
+        launches[model] = runs[model]["launches_per_solve"]
+        for r in ranks:
+            errs = {k: tuple(map(max, errs[k], r["solves"]["errs"][k]))
+                    for k in errs}
+        if model == 4:
+            tiny = ranks[0]["tiny"]
+            check(all(np.array_equal(r["tiny"]["final_cost"],
+                                     tiny["final_cost"]) for r in ranks),
+                  "tiny batched solve: data groups differ")
+            print(f"data = 2 x model = 2 batched tiny solve: elements "
+                  f"bit-identical, cost {tiny['initial_cost']} -> "
+                  f"{tiny['final_cost']}")
+        if model == 2:
+            runs["fleet"] = check_fleet(device, ranks)
+        print(f"(at {time.perf_counter() - T0:.1f} s)")
+    return errs, launches, {"native": native, "runs": runs}
+
+
 def main():
     phase("device")
     if not torch.cuda.is_available():
@@ -1788,7 +2075,7 @@ def main():
 
 
 def run(device, card):
-    """Phases 2-9 on ``device``; prints the result lines."""
+    """Phases 2-10 on ``device``; prints the result lines."""
     phase("build")
     b = ca.build()
     print(f"built {b.path.name} in {b.seconds:.1f} s")
@@ -1800,7 +2087,7 @@ def run(device, card):
     records = check_kernels(device)
 
     phase("main path: trimmed windowed BA, 20x1536 (12x800 used)")
-    launches, problem, solve = main_path(device)
+    launches, problem, single_mask, solve = main_path(device)
     for name, r in records.items():
         r["launches"] = launches[name]
 
@@ -1816,10 +2103,17 @@ def run(device, card):
 
     phase(f"host engine at full width: KITTI layout on disk, {HOST_FRAMES} "
           f"frames, f32")
+    native_loader.reads.update(native=0, numpy=0)
     host_launches, errs, host_rec = host_phase(device, card, errs)
+    host_reads = dict(native_loader.reads)
 
     phase("many sequences, the tuning grid and the long drive on the card")
     long_launches, errs, many_rec = many_phase(device, card, errs)
+
+    phase("the landmark-sharded solve on ranks sharing the card (gloo), the "
+          "multi-process helpers, the native loader")
+    errs, sharded_launches, sharded_rec = sharded_phase(
+        device, single_mask, host_reads, errs)
     for name, r in records.items():
         r["max_abs_err"], r["max_rel_err"] = errs[name]
         r["scan_launches"] = scan_launches[name]
@@ -1833,12 +2127,15 @@ def run(device, card):
         r["long_launches_per_frame"] = long_launches[name] / LONG_FRAMES
         r["batch_launches"] = many_rec["batch"]["launches"][name]
         r["tuning_launches"] = many_rec["tuning"]["launches"][name]
+        r["sharded_launches_per_solve_per_rank"] = {
+            m: sharded_launches[m][name] for m in SHARD_MODELS}
 
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "kernels": list(records.values()), "solve": solve,
          "profile": prof, "scan": scan, "fused": fused_rec,
-         "host": host_rec, "many": many_rec}, indent=1))
+         "host": host_rec, "many": many_rec, "sharded": sharded_rec},
+        indent=1))
     print(card)
     print(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {

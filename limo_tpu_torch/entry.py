@@ -27,11 +27,23 @@ the reference package's flagship fused configuration, for
 drive (its host-engine gate's world) to disk and returns that gate's
 configuration, for :func:`limo_tpu_torch.pipeline.evaluation.
 evaluate_kitti_sequence`.
+
+:func:`entry` is the flagship step as the reference package's
+``__graft_entry__.entry`` gives it, and :func:`dryrun_multichip` its
+multi-device check: N ranks run the landmark-sharded solve on tiny batched
+shapes, at the bench scale against the unsharded solve, and a sequence
+fleet through the multi-process helpers. From the command line::
+
+    python -m limo_tpu_torch.entry                   # entry() once
+    python -m limo_tpu_torch.entry dryrun N [--device cpu] [--backend nccl]
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
+import os
+import sys
 
 import numpy as np
 import torch
@@ -43,9 +55,16 @@ from .frontend.tracker import TrackerConfig
 from .geometry import pose as pose_ops
 from .geometry.camera import CameraRig
 from .pipeline.evaluation import make_km_rendered_world, rendered_drive_config
+from .parallel import (gather_selection, gather_window,
+                       host_local_to_global, make_mesh, make_sharded_solver,
+                       process_local_batch, shard_selection, shard_window,
+                       spawn)
+from .parallel.multihost import mesh_device
+from .pipeline import scan_odometry as so
 from .pipeline.full import LimoPipelineConfig
 from .pipeline.render import SequenceRenderer, write_kitti_sequence
 from .pipeline.synthetic import dense_tracks, make_world
+from .solver import solve_trimmed
 from .state import Selection, Window, empty_window
 
 
@@ -271,3 +290,167 @@ def kitti_host_drive(num_frames: int, root: str, seed: int = 9,
         tracker=TrackerConfig(max_features=256, border=8),
         lidar=LidarDepthConfig(), use_groundplane=True, cloud_capacity=16384)
     return gt_path, pcfg
+
+
+def entry(device="cuda"):
+    """(fn, example_args): the trimmed windowed-BA solve on a KITTI-scale
+    window, ``make_problem(12, 1024, 12, 600, float32)`` — the reference
+    package's ``__graft_entry__.entry``."""
+    w, sel, rig, cfg = make_problem(12, 1024, 12, 600, torch.float32,
+                                    device=device)
+
+    def fn(window, sel):
+        return solve_trimmed(window, sel, rig, cfg)
+
+    return fn, (w, sel)
+
+
+def _mesh_shape(mesh):
+    return mesh.size(0), mesh.size(1)
+
+
+def _stacked(tree, n):
+    return type(tree)(*[torch.stack([x] * n) for x in tree])
+
+
+def dryrun_tiny(mesh):
+    """Stage 1: a batch of ``data`` identical tiny windows, one per data
+    group, landmarks over the model axis (``make_problem(5, max(16 model,
+    32), 5, 24)``, f32). Every element finite and equal. Returns a line."""
+    data, model = _mesh_shape(mesh)
+    L_cap = max(16 * model, 32)
+    w, sel, rig, cfg = make_problem(5, L_cap, 5, min(L_cap, 24),
+                                    torch.float32, device="cpu")
+    wb = shard_window(_stacked(w, data), mesh, batched=True)
+    sb = shard_selection(_stacked(sel, data), mesh, batched=True)
+    out_w, _, info = make_sharded_solver(mesh, rig, cfg)(wb, sb)
+    full = gather_window(out_w, mesh, batched=True)
+    final = info.final_cost
+    if not bool(torch.isfinite(final).all() and torch.isfinite(full.poses)
+                .all()):
+        raise RuntimeError(f"dryrun tiny: non-finite result {final}")
+    for b in range(1, data):
+        if not all(torch.equal(x[0], x[b]) for x in full):
+            raise RuntimeError(f"dryrun tiny: element {b} != element 0")
+    return (f"dryrun_multichip ok: mesh=({data}x{model}) cost "
+            f"{info.initial_cost.tolist()} -> {final.tolist()}, "
+            f"{data} elements equal")
+
+
+def dryrun_production(mesh):
+    """Stage 2: the bench scale, ``make_problem(12, 1024, 12, 800, seed=2)``,
+    landmarks over the model axis, against the unsharded solve on the same
+    device. On the CPU in f64: poses within 1e-4, cost within 1e-5
+    (relative), as the reference's dry run holds it. On a card in f32 (the
+    kernels' type): the same rounds, trimmed mask and a cost within 1e-4,
+    as chip_smoke's phase 10 holds its sharded solve. Returns a line."""
+    device = mesh_device(mesh)
+    dtype = torch.float64 if device.type == "cpu" else torch.float32
+    w, sel, rig, cfg = make_problem(12, 1024, 12, 800, dtype, seed=2,
+                                    device="cpu")
+    ref_w, ref_sel, ref_info = solve_trimmed(
+        *[type(t)(*[x.to(device) for x in t]) for t in (w, sel, rig)], cfg)
+    out_w, out_sel, info = make_sharded_solver(mesh, rig, cfg, batched=False)(
+        shard_window(w, mesh), shard_selection(sel, mesh))
+    poses = gather_window(out_w, mesh).poses
+    mask = gather_selection(out_sel, mesh).lm_selected
+    dp = float((poses - ref_w.poses).abs().max())
+    ref = float(ref_info.final_cost)
+    rel = abs(float(info.final_cost) - ref) / max(abs(ref), 1e-9)
+    if dtype == torch.float64:
+        ok = dp < 1e-4 and rel < 1e-5
+    else:
+        ok = (info.n_rounds == ref_info.n_rounds and rel < 1e-4
+              and torch.equal(mask, ref_sel.lm_selected))
+    if not ok:
+        raise RuntimeError(f"dryrun production-shape parity: pose delta "
+                           f"{dp}, cost rel delta {rel}, rounds "
+                           f"{info.n_rounds} / {ref_info.n_rounds}")
+    return (f"dryrun_multichip production-shape parity ok ({dtype}): max "
+            f"pose delta {dp:.2e}, cost rel delta {rel:.2e}, trimmed "
+            f"{int(info.n_trimmed)}")
+
+
+def dryrun_fleet(mesh):
+    """Stage 3: B = max(data + 1, 3) identical 24-frame scan drives (150
+    landmarks, 40 ground points, 8 x 256 x 1) as a fleet over the data
+    axis: each data group loads its rows (``process_local_batch``, padded
+    rows replay row 0), runs them (``run_fleet`` on its device) and every
+    rank gathers the global batch (``host_local_to_global``). Members are
+    equal, and from frame 10 on within 1e-6 of ``run_sequence`` (f64 on
+    the CPU, f32 on a card). Returns a line."""
+    device = mesh_device(mesh)
+    dtype = torch.float64 if device.type == "cpu" else torch.float32
+    data, _ = _mesh_shape(mesh)
+    world = make_world(num_frames=24, n_landmarks=150, n_ground=40, seed=3)
+    cfg = LimoConfig(capacity=CapacityConfig(
+        max_keyframes=8, max_landmarks=256, max_cameras=1))
+    on = lambda a: torch.as_tensor(np.asarray(a)[None], dtype=dtype,
+                                   device=device)
+    rig = CameraRig(focal=on(world.focal), principal=on(world.principal),
+                    T_cam_veh=on(world.T_cam_veh))
+    stamps, uvd, valid = dense_tracks(world, 256, with_depth=True, seed=4)
+    _, one = so.run_sequence(stamps, uvd, valid, rig, cfg, dtype=dtype,
+                             device=device)
+    B = max(data + 1, 3)                 # forces a padded row
+    start, stop, total = process_local_batch(B, mesh)
+    rows = stop - start
+    _, local = so.run_fleet(*[np.stack([x] * rows) for x in
+                              (stamps, uvd, valid)], rig, cfg, dtype=dtype,
+                            devices=[device])
+    fleet = host_local_to_global(local, mesh)
+    if fleet.pose.shape[0] != total:
+        raise RuntimeError(f"dryrun fleet: {fleet.pose.shape[0]} rows, "
+                           f"not {total}")
+    d_ident = float((fleet.pose[0] - fleet.pose[B - 1]).abs().max())
+    d_pose = float((fleet.pose[0, 10:] - one.pose[10:]).abs().max())
+    if d_ident != 0.0 or not d_pose < 1e-6:
+        raise RuntimeError(f"dryrun fleet: members differ by {d_ident}, "
+                           f"steady state from run_sequence by {d_pose}")
+    return (f"dryrun_multichip fleet-on-mesh ok: B={B} sequences on "
+            f"data={data} (padded to {total}), {dtype} steady-state pose "
+            f"delta vs single {d_pose:.2e}")
+
+
+def _dryrun_rank(n, device):
+    if device == "cpu":
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // n))
+    mesh = make_mesh(n, device_type=device)
+    return [stage(mesh) for stage in
+            (dryrun_tiny, dryrun_production, dryrun_fleet)]
+
+
+def dryrun_multichip(n_devices: int, device: str = "cuda",
+                     backend: str = "gloo"):
+    """The three stages on ``n_devices`` ranks started on this host
+    (``parallel.spawn``) over a ``make_mesh(n_devices)`` mesh of
+    ``device`` ranks (CUDA ranks take card ``rank % cards``: ``gloo``
+    where they share a card, ``nccl`` with one card each). Every rank
+    checks its stages; returns rank 0's lines."""
+    lines = spawn(_dryrun_rank, n_devices, backend, args=(n_devices, device),
+                  timeout_s=1800.0)[0]
+    for line in lines:
+        print(line, flush=True)
+    return lines
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(prog="python -m limo_tpu_torch.entry")
+    ap.add_argument("mode", nargs="?", choices=["entry", "dryrun"],
+                    default="entry")
+    ap.add_argument("n", nargs="?", type=int, default=4)
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--backend", default="gloo", choices=["gloo", "nccl"])
+    args = ap.parse_args(argv)
+    if args.mode == "dryrun":
+        dryrun_multichip(args.n, args.device, args.backend)
+        return
+    fn, fargs = entry(args.device)
+    _, _, info = fn(*fargs)
+    print(f"entry ok: cost {float(info.initial_cost):.4f} -> "
+          f"{float(info.final_cost):.4f}, {info.n_iterations} LM iterations")
+
+
+if __name__ == "__main__":
+    from limo_tpu_torch.entry import main as _main
+    _main(sys.argv[1:])

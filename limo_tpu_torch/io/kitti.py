@@ -5,10 +5,10 @@ velodyne .bin quads + gt pose-line parser; calib/times from the standard
 odometry layout; pose dump format ``poseToString`` 3×4 row-major,
 general_helpers.hpp:24-29).
 
-A copy of the reference package's ``limo_tpu/io/kitti.py`` with two
-changes: images and label images go through the port's own PNG codec
-(:mod:`.png`, no imaging library), and velodyne scans are read with
-``np.fromfile`` only (the reference's optional C++ loader is not ported).
+A copy of the reference package's ``limo_tpu/io/kitti.py`` with one
+change: images and label images go through the port's own PNG codec
+(:mod:`.png`, no imaging library). Velodyne scans go through the C++
+loader (:mod:`.native_loader`), as the reference's do.
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ from typing import Dict, Optional
 
 import numpy as np
 
+from . import native_loader
 from .png import read_png
 
 
@@ -75,8 +76,9 @@ def write_poses(path: str, mats: np.ndarray) -> None:
 
 def read_velodyne(path: str) -> np.ndarray:
     """Velodyne scan: float32 (x,y,z,intensity) quads → [N,4]
-    (``utility.h:11-38``)."""
-    return np.fromfile(path, dtype=np.float32).reshape(-1, 4)
+    (``utility.h:11-38``), through the C++ loader (numpy where ``g++`` is
+    absent)."""
+    return native_loader.read_velodyne(path)
 
 
 @dataclass

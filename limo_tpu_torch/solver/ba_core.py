@@ -22,6 +22,13 @@ Robust losses enter as IRLS row weights (Cauchy for reprojection/depth,
 Huber for groundplane height), matching Ceres' ScaledLoss(CauchyLoss(a), w)
 wiring in ``addKeyframeToProblem``.
 
+Landmark-sharded solves (``parallel.sharding``) pass the model process
+group as ``axis``: the landmark contributions to the reduced system, the
+cost and the counts are then summed over the ranks
+(:mod:`limo_tpu_torch.utils.collectives`), before anything that depends
+only on the poses and planes (regularizers, the motion parameterization,
+the gauge masks) is added once.
+
 Nothing here reads a value back to the host.
 """
 
@@ -37,6 +44,7 @@ from ..geometry import pose as pose_ops
 from ..geometry.quaternion import qnormalize, qto_matrix
 from ..robust import huber_weight
 from ..state import Selection, Window
+from ..utils.collectives import all_reduce_sum
 from ..utils.profiling import traced
 from . import cuda_assemble
 
@@ -224,11 +232,15 @@ def _gp_system(window: Window, sel: Selection, cfg, with_jacobians: bool):
 
 
 @traced("limo.assemble")
-def assemble(window: Window, sel: Selection, rig, cfg) -> NormalEqs:
+def assemble(window: Window, sel: Selection, rig, cfg,
+             axis=None) -> NormalEqs:
     """Build the (masked, undamped) normal equations at the current state.
 
     The trim scores are not a by-product here: :func:`residual_stats`
-    computes them when a trim round needs them."""
+    computes them when a trim round needs them. With ``axis`` (the model
+    group of a landmark-sharded solve) ``H_pp``, ``b_p`` and the cost are
+    summed over the shards in one ``all_reduce``; the landmark blocks
+    (``V``, ``b_l``, ``W6``, ``Wp``) stay the shard's own."""
     K, L = window.K, window.L
     P = K * PD
     dtype = window.poses.dtype
@@ -263,6 +275,12 @@ def assemble(window: Window, sel: Selection, rig, cfg) -> NormalEqs:
     H_pp = (blocks[:, :, None, :]
             * torch.eye(K, **kw)[:, None, :, None]).reshape(P, P)
     b_p = (torch.nn.functional.pad(b_pose_k, (0, PD - 6)) + b_gp_k).reshape(P)
+    # landmark-sharded: the one collective of the assembly, before the
+    # regularizers so that they enter once (reference ba_core.py:407-419)
+    if axis is not None:
+        flat = torch.cat([H_pp.reshape(-1), b_p, cost.reshape(1)])
+        (flat,) = all_reduce_sum([flat], axis)
+        H_pp, b_p, cost = flat[:P * P].reshape(P, P), flat[P * P:-1], flat[-1]
 
     # ---- regularization residuals (dense over pose+plane params) -------
     reg_r, reg_w, reg_J = _regularizer_system(window, sel, cfg)
@@ -314,30 +332,40 @@ def assemble(window: Window, sel: Selection, rig, cfg) -> NormalEqs:
 
 
 @traced("limo.compute_cost")
-def compute_cost(window: Window, sel: Selection, rig, cfg) -> torch.Tensor:
+def compute_cost(window: Window, sel: Selection, rig, cfg,
+                 axis=None) -> torch.Tensor:
     """Robust cost only — no jacobians. Used for LM accept/reject.
 
     On a card the observation cost comes from the cost-only kernel (the
     same f32 arithmetic as assemble's cost, so accept/reject comparisons
-    are internally consistent)."""
+    are internally consistent). With ``axis`` the observation and
+    groundplane cost is summed over the shards before the regularizers'
+    cost is added."""
     ops, sizes = _obs_kernel_args(window, sel, rig, cfg)
     cost = cuda_assemble.cost_obs(*ops, **sizes)
     _, _, _, gp_cost, _, _ = _gp_system(window, sel, cfg, with_jacobians=False)
+    (cost,) = all_reduce_sum([cost + gp_cost], axis)
     reg_r, reg_w, _ = _regularizer_system(window, sel, cfg,
                                           with_jacobian=False)
-    return cost + gp_cost + 0.5 * torch.sum(reg_w * reg_r * reg_r)
+    return cost + 0.5 * torch.sum(reg_w * reg_r * reg_r)
 
 
 @traced("limo.residual_stats")
-def residual_stats(window: Window, sel: Selection, rig, cfg) -> ResidualStats:
+def residual_stats(window: Window, sel: Selection, rig, cfg,
+                   axis=None) -> ResidualStats:
     """Loss-free per-landmark residual scores for trimming — forward pass
     only (``calculateResiduals``/``getMaximumResidual``,
-    robust_solving.cpp:16-91 evaluate without loss)."""
+    robust_solving.cpp:16-91 evaluate without loss). The scores are the
+    shard's own; with ``axis`` the two counts are summed over the
+    shards."""
     r_obs, repr_ok, depth_ok = _obs_system(window, sel, rig)
     r_gp, _, gp_on, _, _, _ = _gp_system(window, sel, cfg, with_jacobians=False)
     s_repr = torch.linalg.vector_norm(r_obs[..., :2], dim=-1)
     s_depth = torch.abs(r_obs[..., 2])
     zero = torch.zeros_like(s_repr)
+    n_depth, n_gp = all_reduce_sum(
+        [depth_ok.sum(dtype=torch.int32).reshape(1),
+         gp_on.sum(dtype=torch.int32).reshape(1)], axis)
     return ResidualStats(
         repr_score=torch.where(repr_ok, s_repr, zero).amax(dim=(1, 2)),
         depth_score=torch.where(depth_ok, s_depth, zero).amax(dim=(1, 2)),
@@ -345,8 +373,8 @@ def residual_stats(window: Window, sel: Selection, rig, cfg) -> ResidualStats:
         repr_valid=repr_ok.any(dim=2).any(dim=1),
         depth_valid=depth_ok.any(dim=2).any(dim=1),
         gp_valid=gp_on,
-        n_depth=depth_ok.sum(dtype=torch.int32),
-        n_gp=gp_on.sum(dtype=torch.int32),
+        n_depth=n_depth[0],
+        n_gp=n_gp[0],
     )
 
 

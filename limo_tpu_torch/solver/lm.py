@@ -12,6 +12,12 @@ Replaces ``ceres::Solve`` (LM + DENSE_SCHUR, ``robust_solving.hpp:93-108``):
      mirroring Ceres' trust-region expand/shrink behavior)
 
 Every contraction runs in full f32 on the card (utils/precision.py).
+
+Landmark-sharded (``axis`` = the model process group): each rank holds its
+shard's landmark blocks, the reduced system comes out of ``assemble``
+summed, and the Schur correction is summed with ONE ``all_reduce`` per LM
+iteration; the pose solve is replicated (the same inputs on every rank
+give the same step) and the back-substitution stays on the shard.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ import torch
 
 from ..geometry import pose as pose_ops
 from ..state import Selection, Window
+from ..utils.collectives import all_reduce_sum
 from ..utils.precision import full_f32
 from ..utils.profiling import traced
 from .ba_core import PD, assemble, compute_cost, plane_boxplus
@@ -55,7 +62,7 @@ def _apply_vinv(Vinv, X):
 
 @traced("limo.schur_solve")
 @full_f32
-def solve_normal_equations(eqs, lam):
+def solve_normal_equations(eqs, lam, axis=None):
     """Damped Schur solve → (delta_p [P], delta_l [L,3]).
 
     S = H_pp − W·V⁻¹·Wᵀ cancels almost exactly on weakly constrained dims
@@ -86,8 +93,9 @@ def solve_normal_equations(eqs, lam):
                    dim=1)                                       # [L,P+1,3]
     WbV = _apply_vinv(Vinv, Wb)
     G = torch.einsum("lpi,lqi->pq", WbV, Wb)                    # [P+1,P+1]
-    S = H_pp - G[:P, :P]
-    rhs = eqs.b_p - G[:P, P]
+    (corr,) = all_reduce_sum([G[:P, :P + 1]], axis)             # S | rhs
+    S = H_pp - corr[:, :P]
+    rhs = eqs.b_p - corr[:, P]
 
     # dense solve of the reduced system (P ≈ 200); cholesky_ex reports a
     # failed factorization in `info` instead of raising (no host sync)
@@ -135,23 +143,26 @@ def select(accept, cand: Window, old: Window) -> Window:
 
 
 @full_f32
-def run_lm(window: Window, sel: Selection, rig, cfg, max_iters: int):
+def run_lm(window: Window, sel: Selection, rig, cfg, max_iters: int,
+           axis=None):
     """Run up to ``max_iters`` accepted+rejected LM steps. Returns
     (window, final_cost, final_lambda, n_accepted).
 
-    The loop reads one flag back to the host per iteration (``done``)."""
+    The loop reads one flag back to the host per iteration (``done``); it
+    derives from reduced costs alone, so with ``axis`` every rank reads
+    the same flag."""
     scfg = cfg.solver
     mode = getattr(scfg, "motion_parameterization", "full_dof")
-    cost = compute_cost(window, sel, rig, cfg)
+    cost = compute_cost(window, sel, rig, cfg, axis)
     lam = torch.full((), scfg.initial_lambda, dtype=window.poses.dtype,
                      device=window.poses.device)
     n_accepted = torch.zeros((), dtype=torch.int32, device=lam.device)
     for _ in range(int(max_iters)):
         # one full assembly for the step; candidate judged by cost only
-        eqs = assemble(window, sel, rig, cfg)
-        delta_p, delta_l = solve_normal_equations(eqs, lam)
+        eqs = assemble(window, sel, rig, cfg, axis)
+        delta_p, delta_l = solve_normal_equations(eqs, lam, axis)
         cand = apply_step(window, delta_p, delta_l, mode)
-        new_cost = compute_cost(cand, sel, rig, cfg)
+        new_cost = compute_cost(cand, sel, rig, cfg, axis)
         accept = torch.isfinite(new_cost) & (new_cost < cost)
         window = select(accept, cand, window)
         rel_decrease = (cost - new_cost) / torch.clamp_min(cost, 1e-12)

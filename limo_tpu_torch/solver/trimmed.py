@@ -23,6 +23,14 @@ flags back to the host only on iterations where a phase decision needs
 them (the last iteration of a trim round's budget, and every refinement
 iteration): ``SolveInfo.n_host_syncs`` counts those reads.
 
+Landmark-sharded (``axis`` = the model process group of
+``parallel.sharding``): every count is summed over the shards, each trim
+round gathers the three families' scores and masks of every shard in one
+collective and trims the whole vectors as the unsharded solve does, and
+each host read derives from reduced values and the replicated pose solve
+only, so every rank takes the same branch and reaches the next
+collective.
+
 Diagnostics: :class:`SolveInfo` carries the merged-``Summary``/FullReport
 equivalents (robust_solving.hpp:44-74; ``bundle_adjuster_keyframes.cpp:766``)
 as fixed-shape tensors — per-round per-family trim counts and an
@@ -35,8 +43,9 @@ from typing import NamedTuple
 
 import torch
 
-from ..robust import trim_fixed, trim_quantile
+from ..robust import residuals_to_remove
 from ..state import Selection, Window
+from ..utils.collectives import all_gather_cat, all_reduce_sum, local_part
 from ..utils.precision import full_f32
 from .ba_core import assemble, assembly_plan, compute_cost, residual_stats
 from .lm import apply_step, select, solve_normal_equations
@@ -66,26 +75,15 @@ def trace_capacity(cfg) -> int:
             + scfg.refinement_iterations)
 
 
-def _family_outliers(score, valid, trimmer, quantile, fixed_thres,
-                     min_groups):
-    """Per-family TrimmerSpecification dispatch (apply_trimmer.hpp:29-45)
-    with the min-groups guard (getResidualsToRemove,
-    robust_solving.cpp:100-125)."""
-    if trimmer == "quantile":
-        out = trim_quantile(score, valid, quantile)
-    elif trimmer == "fixed":
-        out = trim_fixed(score, valid, fixed_thres)
-    else:
-        raise ValueError(f"unknown trimmer type {trimmer!r}")
-    return out & (valid.sum() >= min_groups)
-
-
 @full_f32
-def solve_trimmed(window: Window, sel: Selection, rig, cfg):
+def solve_trimmed(window: Window, sel: Selection, rig, cfg, axis=None):
     """Full trimmed solve. Returns (window, selection, SolveInfo).
 
     The returned selection has trimmed landmarks removed (mask cleared) —
-    mirroring the reference's permanent RemoveResidualBlock surgery.
+    mirroring the reference's permanent RemoveResidualBlock surgery. With
+    ``axis`` the window and selection are one landmark shard, the result's
+    landmark fields are the shard's and everything else (poses, planes,
+    SolveInfo) is the same on every rank.
     """
     rcfg = cfg.robust
     scfg = cfg.solver
@@ -105,17 +103,16 @@ def solve_trimmed(window: Window, sel: Selection, rig, cfg):
         return sel._replace(lm_selected=mask)
 
     def get_cost(w, mask):
-        return compute_cost(w, sel_with(mask), rig, cfg)
-
-    def count(x):
-        return x.sum(dtype=torch.int32)
+        return compute_cost(w, sel_with(mask), rig, cfg, axis)
 
     def initial_lam():
         return torch.full((), scfg.initial_lambda, dtype=dtype, device=device)
 
     initial_cost = get_cost(window, sel.lm_selected)
     # trimming only engages with >100 selected landmarks (solve():741-746)
-    trim_active = count(window.lm_valid & sel.lm_selected) > 100
+    (n_selected,) = all_reduce_sum(
+        [(window.lm_valid & sel.lm_selected).sum(dtype=torch.int32)], axis)
+    trim_active = n_selected > 100
 
     lm_selected = sel.lm_selected
     lam = initial_lam()
@@ -130,27 +127,38 @@ def solve_trimmed(window: Window, sel: Selection, rig, cfg):
     extended = done = False
 
     def trim(window, lm_selected):
-        """One trim round: new selection, outlier count, family counts."""
-        stats = residual_stats(window, sel_with(lm_selected), rig, cfg)
-        fam = {
-            "repr": (stats.repr_score, stats.repr_valid,
-                     rcfg.reprojection_trimmer, rcfg.reprojection_quantile,
-                     rcfg.reprojection_trim_fixed_thres),
-            "depth": (stats.depth_score, stats.depth_valid,
-                      rcfg.depth_trimmer, rcfg.depth_quantile,
-                      rcfg.depth_trim_fixed_thres),
-            "gp": (stats.gp_score, stats.gp_valid, rcfg.gp_trimmer,
-                   rcfg.gp_quantile, rcfg.gp_trim_fixed_thres),
-        }
-        out = {f: _family_outliers(*a, rcfg.min_residual_groups) & trim_active
-               for f, a in fam.items()}
-        outliers = out["repr"] | out["depth"] | out["gp"]
-        return lm_selected & (~outliers), count(outliers), out
+        """One trim round: new selection, outlier count, family counts.
+        Sharded, the families' scores and masks of every shard come in one
+        gather: each family is trimmed on the whole vector, as unsharded,
+        and the counts are global without another collective."""
+        stats = residual_stats(window, sel_with(lm_selected), rig, cfg, axis)
+        # per-family TrimmerSpecification (apply_trimmer.hpp:29-45)
+        fam = (
+            (stats.repr_score, stats.repr_valid, rcfg.reprojection_trimmer,
+             rcfg.reprojection_quantile, rcfg.reprojection_trim_fixed_thres),
+            (stats.depth_score, stats.depth_valid, rcfg.depth_trimmer,
+             rcfg.depth_quantile, rcfg.depth_trim_fixed_thres),
+            (stats.gp_score, stats.gp_valid, rcfg.gp_trimmer,
+             rcfg.gp_quantile, rcfg.gp_trim_fixed_thres),
+        )
+        rows = [x for score, valid, *_ in fam for x in (score, valid)]
+        if axis is not None:
+            rows = all_gather_cat(
+                torch.stack([x.to(dtype) for x in rows]), axis, dim=1)
+        out = [residuals_to_remove(
+            rows[2 * f], rows[2 * f + 1] != 0, trimmer,
+            quantile if trimmer == "quantile" else fixed_thres,
+            rcfg.min_residual_groups) & trim_active
+            for f, (_, _, trimmer, quantile, fixed_thres) in enumerate(fam)]
+        outliers = out[0] | out[1] | out[2]
+        counts = torch.stack([m.sum(dtype=torch.int32)
+                              for m in (outliers, *out)])
+        return lm_selected & ~local_part(outliers, axis), counts
 
     while not done and round_idx <= num_rounds:
         # ---- one LM iteration ------------------------------------------
-        eqs = assemble(window, sel_with(lm_selected), rig, cfg)
-        delta_p, delta_l = solve_normal_equations(eqs, lam)
+        eqs = assemble(window, sel_with(lm_selected), rig, cfg, axis)
+        delta_p, delta_l = solve_normal_equations(eqs, lam, axis)
         cand = apply_step(window, delta_p, delta_l, mode)
         new_cost = get_cost(cand, lm_selected)
         accept = torch.isfinite(new_cost) & (new_cost < cost)
@@ -187,10 +195,10 @@ def solve_trimmed(window: Window, sel: Selection, rig, cfg):
             extend = not extended and not bool(cost < round_start_cost)
             extended = extended or extend
             if not extend:
-                lm_selected, n_out, out = trim(window, lm_selected)
-                n_trimmed = n_trimmed + n_out
-                for f in trimmed:
-                    trimmed[f][round_idx] = count(out[f])
+                lm_selected, counts = trim(window, lm_selected)
+                n_trimmed = n_trimmed + counts[0]
+                for f, n in zip(trimmed, counts[1:]):
+                    trimmed[f][round_idx] = n
                 cost = get_cost(window, lm_selected)
                 round_idx += 1
                 it_in_round = 0
