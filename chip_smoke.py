@@ -113,14 +113,31 @@ Phases (any failure ends the run with a non-zero exit, and no result):
    ``run_fleet``, ``host_local_to_global``), every row on both ranks
    bit-identical to ``run_sequence`` on the card; the port's native
    library (``native/limo_native.cpp``, built with g++) loaded, its reads
-   equal to numpy, and phase 8's KITTI reads counted through it.
+   equal to numpy, and phase 8's KITTI reads counted through it;
+11. the windowed solver's modes on the bench window: the windowed
+   motion-only solve (``run_lm(pose_only=True, speed_reg=...)`` from
+   ``initial_lambda``) through both kernels, with its launches, the
+   landmarks bit-identical, the kernels against their plain versions on
+   its input and output windows and its costs against the port's f64 call
+   on the CPU; the rotation-compensated trimmed solve, the f64 window on
+   the card and the f32 window with the kernels turned off, each on the
+   reference's non-kernel route (``torch(<reason>)``, no kernel launched),
+   the first against the port's f64 solve on the CPU, the other two held
+   to the bench shape; and a labelled 12-frame scan drive at 20 x 1536
+   through ``make_scan_step`` with the default label sets and with every
+   label id permuted alike in the frames and the sets, bit-identical.
 
-The line before the last is ``{"kernels": [...]}``; the last line is
-``{"ok": true, "device": {...}}``. The profile table and a JSON record of
-the run are written under chiprun_out/.
+Each profile (phases 5-8) is read from the profiler's raw events
+(``trace_summary``). The line ``{"phase_seconds": ..., "bench_solve_ms":
+...}`` gives each phase's seconds and phase 4's ms per solve, so that a
+slow host shows as one; then the card's name and power limit; the line
+before the last is ``{"kernels": [...]}``; the last line is ``{"ok": true,
+"device": {...}}``. The profile tables and a JSON record of the run are
+written to the output directory ``OUT``.
 """
 
 import contextlib
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -139,7 +156,8 @@ import torch.distributed as dist
 from limo_tpu_torch import window_manager
 from limo_tpu_torch.entry import (KITTI_HOST_DRIFT_KW, fused_drive,
                                   kernel_check_windows, kitti_host_drive,
-                                  make_problem, scan_drive)
+                                  labelled_scan_drive, make_problem,
+                                  scan_drive, speed_regularizer)
 from limo_tpu_torch.frontend import essential
 from limo_tpu_torch.frontend import tracker as trk
 from limo_tpu_torch.frontend.semantics import dilate_labels, sample_labels
@@ -159,9 +177,11 @@ from limo_tpu_torch.pipeline import scan_odometry as so
 from limo_tpu_torch.pipeline.full import frontend_depth_plane
 from limo_tpu_torch.pipeline.metrics import ate_rmse, kitti_drift
 from limo_tpu_torch.solver import ba_core, cuda_assemble as ca
-from limo_tpu_torch.solver import solve_trimmed
+from limo_tpu_torch.solver import run_lm, solve_trimmed
 from limo_tpu_torch.utils import collectives
-from limo_tpu_torch.window_manager import DEFAULT_OUTLIER_LABELS
+from limo_tpu_torch.window_manager import (DEFAULT_GROUND_LABELS,
+                                           DEFAULT_OUTLIER_LABELS,
+                                           DEFAULT_SHRUBBERY_LABELS)
 
 # the reference package's solve of this fixture, JAX on the CPU in f64
 REF_FINAL_COST = 1612.640648
@@ -317,6 +337,15 @@ SHARD_MODELS = (1, 2, 4)
 SHARD_SOLVES = 3
 SHARD_TIMEOUT_S = 300
 FLEET_SEEDS = (3, 8, 13)
+# phase 11: the windowed solver's modes on the bench window. The motion-only
+# solve starts from this lambda; the f64 bench solve on the card must land
+# within MODES_F64_RTOL of the reference's f64 solve; the labelled drive runs
+# LABEL_FRAMES frames, its label ids mapped by LABEL_PERMUTATION_SEED's
+# bijection of -2..33 onto 100..135 in the second run
+MODES_INITIAL_LAMBDA = 1e-3
+MODES_F64_RTOL = 1e-6
+LABEL_FRAMES = 12
+LABEL_PERMUTATION_SEED = 5
 OUT = Path("chiprun_out")
 # each kernel's symbol in the profiler's trace
 SYMBOL = {"assemble_obs": "assemble_obs_kernel", "cost_obs": "cost_obs_kernel",
@@ -329,10 +358,18 @@ def check(ok, msg):
 
 
 T0 = time.perf_counter()
+STARTS = []           # (phase number, its start in seconds since T0)
 
 
-def phase(name):
-    print(f"\n== {name} (at {time.perf_counter() - T0:.1f} s)", flush=True)
+def phase(n, name):
+    STARTS.append((n, time.perf_counter() - T0))
+    print(f"\n== {n}. {name} (at {STARTS[-1][1]:.1f} s)", flush=True)
+
+
+def phase_seconds():
+    """Each phase's seconds so far, by number."""
+    ends = [t for _, t in STARTS[1:]] + [time.perf_counter() - T0]
+    return {n: round(end - t, 1) for (n, t), end in zip(STARTS, ends)}
 
 
 def card_line() -> str:
@@ -700,25 +737,43 @@ def trace_summary(prof, wall_ms, name, per=1):
     """Device operations, busy time and idle share from a trace, the two
     kernels' own launches, and host/device ms per ``limo.*`` range, each
     divided by ``per``; printed, written under chiprun_out/ and returned
-    (None if the trace holds no device time). Sums the trace's events in
-    one pass: ``key_averages()`` recomputes every operation's device time
-    through its children and takes minutes on a fused drive's trace."""
+    (None if the trace holds no device time). Walks the profiler's raw
+    kineto events once: building torch.profiler's events and their tree
+    (``prof.events()``, ``key_averages()``) took ~1 s per thousand device
+    operations on the card. A range's device time is that of the device
+    operations whose launching operation started inside it."""
     from torch.autograd import DeviceType
-    ops, ranges = {}, {}
-    for e in prof.events():
-        key = e.name
-        if e.device_type == DeviceType.CUDA:
+    t0 = time.perf_counter()
+    ops, spans, host_start, launched = {}, [], {}, []
+    for e in prof.profiler.kineto_results.events():
+        key = e.name()
+        if e.device_type() == DeviceType.CUDA:
             if not key.startswith("limo."):  # skip ranges' device annotations
-                c, ms = ops.get(key, (0, 0.0))
-                ops[key] = (c + 1, ms + e.device_time_total / 1e3)
-        elif key.startswith("limo."):
-            c, host, dev = ranges.get(key, (0, 0.0, 0.0))
-            ranges[key] = (c + 1, host + e.cpu_time_total / 1e3,
-                           dev + e.device_time_total / 1e3)
+                ms = e.duration_ns() / 1e6
+                c, total = ops.get(key, (0, 0.0))
+                ops[key] = (c + 1, total + ms)
+                launched.append((e.linked_correlation_id(), ms))
+            continue
+        if key.startswith("limo."):
+            spans.append((key, e.start_ns(), e.end_ns()))
+        if e.correlation_id() > 0:
+            host_start[e.correlation_id()] = e.start_ns()
+    # each range's host time (incl. nested) and the device time of the
+    # operations launched inside it: prefix sums over launch times
+    at = np.array([host_start.get(c, -1) for c, _ in launched], np.int64)
+    order = np.argsort(at, kind="stable")
+    at = at[order]
+    cum = np.concatenate([[0.0], np.cumsum(
+        np.array([ms for _, ms in launched])[order])])
+    ranges = {}
+    for key, start, end in spans:
+        dev = (cum[np.searchsorted(at, end, "right")]
+               - cum[np.searchsorted(at, start, "left")])
+        c, host, d = ranges.get(key, (0, 0.0, 0.0))
+        ranges[key] = (c + 1, host + (end - start) / 1e6, d + dev)
+    parse_s = time.perf_counter() - t0
     kernels = sorted([(k, c, ms) for k, (c, ms) in ops.items()],
                      key=lambda r: -r[2])
-    # each range's host time (incl. nested) and the device time of the
-    # operations it launched
     layers = sorted([(k, c, h / per, d / per)
                      for k, (c, h, d) in ranges.items()], key=lambda r: -r[2])
     busy = sum(r[2] for r in kernels)
@@ -737,7 +792,8 @@ def trace_summary(prof, wall_ms, name, per=1):
     print(f"{name} under the profiler: wall {wall_ms:.3f} ms, device busy "
           f"{busy:.3f} ms, device idle share {1 - busy / wall_ms:.3f}, "
           f"{n_ops} device operations" + (f" ({n_ops / per:.1f} per frame)"
-                                          if per > 1 else ""))
+                                          if per > 1 else "")
+          + f"; trace read in {parse_s:.2f} s")
     own = {k: [{"count": c, "ms": ms} for key, c, ms in kernels
                if SYMBOL[k] in key] for k in ("assemble_obs", "cost_obs")}
     print(f"the two kernels in this trace: {own}")
@@ -750,7 +806,7 @@ def trace_summary(prof, wall_ms, name, per=1):
         print(f"  {ms:9.4f} | {count:5d} | {key[:90]}")
     return {"wall_ms": wall_ms, "busy_ms": busy,
             "idle_share": 1 - busy / wall_ms, "device_ops": n_ops,
-            "per": per, "kernels_in_trace": own,
+            "per": per, "trace_read_s": parse_s, "kernels_in_trace": own,
             "layers": [{"name": k, "count": c, "host_ms": h, "device_ms": d}
                        for k, c, h, d in layers],
             "top": [{"name": k[:120], "count": c, "ms": m}
@@ -2062,8 +2118,216 @@ def sharded_phase(device, single_mask, host_reads, errs):
     return errs, launches, {"native": native, "runs": runs}
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the windowed solver's modes
+# ---------------------------------------------------------------------------
+
+def wall_ms(fn):
+    """(fn(), wall ms ending in a synchronize)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def on_cpu_f64(tree):
+    return type(tree)(*[to_cpu_f64(x) for x in tree])
+
+
+def gate_final(name, c0, c1, r1, factor=SCAN_FINAL_FACTOR):
+    """The f32 final cost finite, below the initial cost and within
+    ``factor`` of the f64 one (phase 6's gate)."""
+    check(np.isfinite(c1) and c1 < c0 and r1 / factor <= c1 <= r1 * factor,
+          f"{name}: final cost {c1} vs f64 {r1} (initial {c0})")
+
+
+def motion_only_check(device, errs):
+    """(1) The windowed motion-only solve on the bench window through both
+    kernels: landmarks bit-identical, one assembly per LM iteration and one
+    cost evaluation more, the kernels against their plain versions on its
+    input and output windows, costs against the port's f64 call on the
+    CPU. Returns (record, errs)."""
+    w, sel, rig, cfg = make_problem(20, 1536, 12, 800, torch.float32, seed=1,
+                                    device=device)
+    plan = ba_core.assembly_plan(torch.float32, device, cfg)
+    check(plan.startswith("cuda["), f"motion-only plan {plan}")
+    speed = speed_regularizer(w)
+    n = cfg.solver.pose_only_max_iterations
+    kw = dict(pose_only=True, speed_reg=speed,
+              initial_lambda=MODES_INITIAL_LAMBDA)
+    call = lambda: run_lm(w, sel, rig, cfg, n, **kw)
+    call()                                              # warm-up
+    (out_w, cost, _, n_acc), launches = counted(call)
+    ms = statistics.median(wall_ms(call)[1] for _ in range(3))
+    n_asm = launches["assemble_obs"]
+    print(f"motion-only solve (pose_only, speed regularizer of keyframe "
+          f"{speed[0]}, initial lambda {MODES_INITIAL_LAMBDA}): plan {plan}; "
+          f"launches {launches} ({n_asm} LM iterations of at most {n}); "
+          f"accepted {int(n_acc)}; {ms:.3f} ms per call (median of 3)")
+    check(1 <= n_asm <= n and launches["cost_obs"] == 1 + n_asm,
+          f"motion-only launches {launches}")
+    check(torch.equal(out_w.lm_pos, w.lm_pos), "motion-only: landmarks moved")
+    check(not torch.equal(out_w.poses, w.poses), "motion-only: no pose moved")
+    errs = check_windows([("motion-only input window", (w, sel, rig, cfg)),
+                          ("motion-only output window",
+                           (out_w, sel, rig, cfg))], errs)
+    c0 = float(ba_core.compute_cost(w, sel, rig, cfg, pose_only=True,
+                                    speed_reg=speed))
+    c1 = float(cost)
+    w64, sel64, rig64 = on_cpu_f64(w), on_cpu_f64(sel), on_cpu_f64(rig)
+    speed64 = (speed[0], *[to_cpu_f64(x) for x in speed[1:3]], *speed[3:])
+    r0 = float(ba_core.compute_cost(w64, sel64, rig64, cfg, pose_only=True,
+                                    speed_reg=speed64))
+    ref_w, ref_cost, _, ref_acc = run_lm(w64, sel64, rig64, cfg, n,
+                                         speed_reg=speed64, pose_only=True,
+                                         initial_lambda=MODES_INITIAL_LAMBDA)
+    r1, gap0 = float(ref_cost), abs(c0 - r0) / r0
+    print(f"  card f32: cost {c0:.4f} -> {c1:.4f}; CPU f64: {r0:.4f} -> "
+          f"{r1:.4f}, accepted {int(ref_acc)}, landmarks unchanged "
+          f"{torch.equal(ref_w.lm_pos, w64.lm_pos)}; initial cost rel gap "
+          f"{gap0:.2e}")
+    check(gap0 <= SCAN_INITIAL_RTOL, f"motion-only initial cost {c0} vs {r0}")
+    gate_final("motion-only solve", c0, c1, r1)
+    return {"plan": plan, "launches": launches, "accepted": int(n_acc),
+            "ms": ms, "initial_cost": c0, "final_cost": c1,
+            "f64_initial_cost": r0, "f64_final_cost": r1,
+            "f64_accepted": int(ref_acc)}, errs
+
+
+def trimmed_route_check(name, w, sel, rig, cfg, want_plan, **kw):
+    """One trimmed solve on the torch route: its plan, no kernel launch,
+    its wall ms. Returns (SolveInfo, record)."""
+    plan = ba_core.assembly_plan(w.poses.dtype, w.poses.device, cfg,
+                                 kw.get("compensate_rotation", False))
+    check(plan == want_plan, f"{name}: plan {plan}, not {want_plan}")
+    ((_, _, info), ms), launches = counted(lambda: wall_ms(
+        lambda: solve_trimmed(w, sel, rig, cfg, **kw)))
+    print(f"{name}: plan {plan}; launches {launches}; {ms:.1f} ms (one "
+          f"call); LM iterations {info.n_iterations}, rounds {info.n_rounds}, "
+          f"trimmed {int(info.n_trimmed)}, cost {float(info.initial_cost):.6f}"
+          f" -> {float(info.final_cost):.6f}")
+    check(all(v == 0 for v in launches.values()),
+          f"{name}: kernels launched on the torch route: {launches}")
+    return info, {"plan": plan, "launches": launches, "ms": ms,
+                  "iterations": info.n_iterations, "rounds": info.n_rounds,
+                  "trimmed": int(info.n_trimmed),
+                  "initial_cost": float(info.initial_cost),
+                  "final_cost": float(info.final_cost)}
+
+
+def rotrocc_check(device):
+    """(2) The rotation-compensated trimmed solve of the bench window on
+    the reference's non-kernel route, against the port's f64 solve on the
+    CPU."""
+    w, sel, rig, cfg = make_problem(20, 1536, 12, 800, torch.float32, seed=1,
+                                    device=device)
+    info, rec = trimmed_route_check(
+        "rotation-compensated solve", w, sel, rig, cfg,
+        "torch(rotation-compensated)", compensate_rotation=True)
+    _, _, ref = solve_trimmed(on_cpu_f64(w), on_cpu_f64(sel),
+                              on_cpu_f64(rig), cfg, compensate_rotation=True)
+    c0, c1 = rec["initial_cost"], rec["final_cost"]
+    r0, r1 = float(ref.initial_cost), float(ref.final_cost)
+    print(f"  CPU f64: LM iterations {ref.n_iterations}, rounds "
+          f"{ref.n_rounds}, trimmed {int(ref.n_trimmed)}, cost {r0:.6f} -> "
+          f"{r1:.6f}; initial cost rel gap {abs(c0 - r0) / r0:.2e}")
+    check(abs(c0 - r0) / r0 <= SCAN_INITIAL_RTOL,
+          f"rotation-compensated initial cost {c0} vs f64 {r0}")
+    gate_final("rotation-compensated solve", c0, c1, r1)
+    rec.update(f64_initial_cost=r0, f64_final_cost=r1,
+               f64_iterations=ref.n_iterations, f64_rounds=ref.n_rounds,
+               f64_trimmed=int(ref.n_trimmed))
+    return rec
+
+
+def bench_shape_check(name, info, rtol):
+    final = float(info.final_cost)
+    rel = abs(final - REF_FINAL_COST) / REF_FINAL_COST
+    check(info.n_rounds == 1 and int(info.n_trimmed) == REF_TRIMMED
+          and rel <= rtol, f"{name}: rounds {info.n_rounds}, trimmed "
+          f"{int(info.n_trimmed)}, cost {final} (rel {rel:.2e} > {rtol})")
+    print(f"  bench shape held: 1 round, {REF_TRIMMED} trimmed, final cost "
+          f"rel {rel:.2e} of the reference's f64 {REF_FINAL_COST}")
+    return rel
+
+
+def label_permutation():
+    """The fixed bijection of label ids -2..33 onto 100..135."""
+    ids = np.arange(-2, 34)
+    image = 100 + np.random.default_rng(LABEL_PERMUTATION_SEED).permutation(
+        len(ids))
+    return dict(zip(ids.tolist(), image.tolist()))
+
+
+def label_sets_check(device):
+    """(5) The labelled scan drive through make_scan_step with the default
+    label sets, and with every label id permuted alike in the frames and
+    in the three sets: bit-identical FrameOuts and final states."""
+    stamps, uvd, valid, labels, rig, cfg, _ = labelled_scan_drive(
+        LABEL_FRAMES, device=device)
+    perm = label_permutation()
+    mapped = np.vectorize(perm.__getitem__, otypes=[np.int32])(labels)
+    sets = {k: frozenset(perm[i] for i in v) for k, v in (
+        ("outlier_labels", DEFAULT_OUTLIER_LABELS),
+        ("shrubbery_labels", DEFAULT_SHRUBBERY_LABELS),
+        ("ground_labels", DEFAULT_GROUND_LABELS))}
+    runs = []
+    for lab, kw in ((labels, {}), (mapped, sets)):
+        xs = so.frame_arrays(stamps, uvd, valid, cfg, labels=lab,
+                             device=device)
+        st0 = so.init_state(cfg.capacity, torch.float32,
+                            cfg.prior.default_speed, device)
+        step = so.make_scan_step(rig, cfg, **kw)
+        (st, out, _), launches = counted(lambda: drive_frames(
+            step, st0, xs, range(LABEL_FRAMES)))
+        check_launch_identity("labelled drive", launches, step.stats.solves)
+        runs.append((st, out, launches))
+    (st_a, out_a, launches), (st_b, out_b, _) = runs
+    same = outs_equal(out_a, out_b) and states_equal(st_a, st_b)
+    counts = drive_counts(out_a)
+    print(f"labelled drive ({LABEL_FRAMES} frames, 20 x 1536, labels "
+          f"{sorted(np.unique(labels).tolist())}): {counts}; launches "
+          f"{launches}; default and permuted ontology bit-identical "
+          f"(FrameOut and final ScanState): {same}")
+    check(same, "the permuted label ontology changed the drive")
+    return {"frames": LABEL_FRAMES, "counts": counts, "launches": launches,
+            "bit_identical": same}
+
+
+def modes_phase(device, errs):
+    """Phase 11. Returns (the updated kernel errors, kernel launches of the
+    kernel-route runs by kernel, the phase's record)."""
+    motion, errs = motion_only_check(device, errs)
+    print(f"(at {time.perf_counter() - T0:.1f} s)")
+    rot = rotrocc_check(device)
+    print(f"(at {time.perf_counter() - T0:.1f} s)")
+    w, sel, rig, cfg = make_problem(20, 1536, 12, 800, torch.float64, seed=1,
+                                    device=device)
+    info, f64 = trimmed_route_check("f64 bench solve on the card", w, sel,
+                                    rig, cfg, "torch(dtype)")
+    f64["rel_to_reference"] = bench_shape_check("f64 bench solve", info,
+                                                MODES_F64_RTOL)
+    w, sel, rig, cfg = make_problem(20, 1536, 12, 800, torch.float32, seed=1,
+                                    device=device)
+    off = cfg.replace(solver=dataclasses.replace(cfg.solver,
+                                                 use_pallas_assembly=False))
+    info, disabled = trimmed_route_check("f32 bench solve, kernels off", w,
+                                         sel, rig, off, "torch(disabled)")
+    disabled["rel_to_reference"] = bench_shape_check(
+        "kernels-off bench solve", info, 1e-4)
+    print(f"(at {time.perf_counter() - T0:.1f} s)")
+    labels = label_sets_check(device)
+    launches = {k: {"motion_only_solve": motion["launches"][k],
+                    "labelled_drive": labels["launches"][k]}
+                for k in ca.launches}
+    return errs, launches, {"motion_only": motion, "rotation_compensated": rot,
+                            "f64": f64, "disabled": disabled,
+                            "label_sets": labels}
+
+
 def main():
-    phase("device")
+    phase(1, "device")
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA card (torch.cuda.is_available() "
                          "is false)")
@@ -2075,45 +2339,49 @@ def main():
 
 
 def run(device, card):
-    """Phases 2-10 on ``device``; prints the result lines."""
-    phase("build")
+    """Phases 2-11 on ``device``; prints the result lines."""
+    phase(2, "build")
     b = ca.build()
     print(f"built {b.path.name} in {b.seconds:.1f} s")
     for line in b.log.splitlines():
         if "registers" in line or "spill" in line or "error" in line:
             print("  " + line.strip())
 
-    phase("kernels against their plain versions")
+    phase(3, "kernels against their plain versions")
     records = check_kernels(device)
 
-    phase("main path: trimmed windowed BA, 20x1536 (12x800 used)")
+    phase(4, "main path: trimmed windowed BA, 20x1536 (12x800 used)")
     launches, problem, single_mask, solve = main_path(device)
     for name, r in records.items():
         r["launches"] = launches[name]
 
-    phase("where the time goes")
+    phase(5, "where the time goes")
     prof = where_time_goes(problem)
 
-    phase("scan drive at full width: 20x1536, 60 frames, f32")
+    phase(6, "scan drive at full width: 20x1536, 60 frames, f32")
     errs = {k: (r["max_abs_err"], r["max_rel_err"]) for k, r in records.items()}
     scan_launches, errs, scan = scan_phase(device, card, errs)
 
-    phase("fused drive at full width: images + clouds, 200 frames, f32")
+    phase(7, "fused drive at full width: images + clouds, 200 frames, f32")
     fused_launches, errs, fused_rec = fused_phase(device, card, errs)
 
-    phase(f"host engine at full width: KITTI layout on disk, {HOST_FRAMES} "
-          f"frames, f32")
+    phase(8, f"host engine at full width: KITTI layout on disk, "
+          f"{HOST_FRAMES} frames, f32")
     native_loader.reads.update(native=0, numpy=0)
     host_launches, errs, host_rec = host_phase(device, card, errs)
     host_reads = dict(native_loader.reads)
 
-    phase("many sequences, the tuning grid and the long drive on the card")
+    phase(9, "many sequences, the tuning grid and the long drive on the card")
     long_launches, errs, many_rec = many_phase(device, card, errs)
 
-    phase("the landmark-sharded solve on ranks sharing the card (gloo), the "
-          "multi-process helpers, the native loader")
+    phase(10, "the landmark-sharded solve on ranks sharing the card (gloo), "
+          "the multi-process helpers, the native loader")
     errs, sharded_launches, sharded_rec = sharded_phase(
         device, single_mask, host_reads, errs)
+
+    phase(11, "the windowed solver's modes on the card: motion-only, "
+          "rotation-compensated, f64, kernels off, label sets")
+    errs, modes_launches, modes_rec = modes_phase(device, errs)
     for name, r in records.items():
         r["max_abs_err"], r["max_rel_err"] = errs[name]
         r["scan_launches"] = scan_launches[name]
@@ -2129,13 +2397,17 @@ def run(device, card):
         r["tuning_launches"] = many_rec["tuning"]["launches"][name]
         r["sharded_launches_per_solve_per_rank"] = {
             m: sharded_launches[m][name] for m in SHARD_MODELS}
+        r["modes_launches"] = modes_launches[name]
 
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "kernels": list(records.values()), "solve": solve,
          "profile": prof, "scan": scan, "fused": fused_rec,
-         "host": host_rec, "many": many_rec, "sharded": sharded_rec},
+         "host": host_rec, "many": many_rec, "sharded": sharded_rec,
+         "modes": modes_rec, "phase_seconds": phase_seconds()},
         indent=1))
+    print(json.dumps({"phase_seconds": phase_seconds(),
+                      "bench_solve_ms": solve["ms_per_solve"]}))
     print(card)
     print(json.dumps({"kernels": list(records.values())}))
     print(json.dumps({"ok": True, "device": {

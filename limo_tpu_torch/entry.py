@@ -8,6 +8,9 @@ trimmed-solve fixture of ``bench.py`` and ``chip_smoke.py``: 20 keyframe
 slots × 1536 landmark slots × 1 camera, 12 keyframes and 800 landmarks in
 use, lidar depth on every landmark.
 
+:func:`speed_regularizer` gives a window's windowed motion-only solve
+(``run_lm(pose_only=True, speed_reg=...)``) its constant-velocity term.
+
 :func:`kernel_check_windows` lists the windows on which the kernels are
 held against their plain versions: the bench window and a 2-camera window
 (:func:`two_camera_window`), each with and without lidar depth, and a
@@ -18,6 +21,10 @@ window of 40 keyframe slots whose keyframes in use sit in slots 28-39
 default ``LimoConfig()`` capacity (20 keyframe slots × 1536 landmark slots
 × 1 camera) on a synthetic 10 m/s KITTI-like world, for
 :func:`limo_tpu_torch.pipeline.scan_odometry.run_sequence`.
+
+:func:`labelled_scan_drive` is the same drive with vegetation and moving
+cars beside its landmarks and ground points, tracked with their semantic
+labels.
 
 :func:`fused_drive` builds the fused images + clouds drive at full width,
 the reference package's flagship fused configuration, for
@@ -140,6 +147,18 @@ def _all_selected(w: Window) -> Selection:
         plane_dist_fixed=scalar(False, torch.bool))
 
 
+def speed_regularizer(w: Window):
+    """``speed_reg`` of a windowed motion-only solve, ``(kf_index,
+    pose_origin_before, vel_before, dt, weight)``: the newest active
+    keyframe (read on the host), the inverse of its pose before the solve,
+    a velocity of (0.2, -0.1, 0.5) m/s, dt = 0.1 s and weight 0.5."""
+    newest = torch.where(w.kf_valid, w.stamps,
+                         torch.full_like(w.stamps, -torch.inf))
+    kf = int(torch.argmax(newest))
+    vel = torch.tensor([0.2, -0.1, 0.5], dtype=w.poses.dtype)
+    return kf, pose_ops.inverse(w.poses[kf]), vel.to(w.poses.device), 0.1, 0.5
+
+
 def two_camera_window(K=6, L=1000, with_depth=True, seed=5, device="cuda"):
     """A float32 window of K keyframes × L landmarks × 2 cameras for kernel
     checks: rotated keyframes, a rotated and offset second camera, label
@@ -221,6 +240,25 @@ def scan_drive(num_frames=60, seed=3, with_depth=True, dtype=torch.float32,
     rig = CameraRig(focal=on(world.focal), principal=on(world.principal),
                     T_cam_veh=on(world.T_cam_veh))
     return stamps, uvd, valid, rig, cfg, world
+
+
+def labelled_scan_drive(num_frames=12, seed=3, device="cuda"):
+    """:func:`scan_drive`'s world with 60 vegetation points (cityscapes
+    label 21) and 40 points on moving cars (label 26) beside its landmarks
+    (label −2, none) and ground points (7), tracked into 1536 rows with
+    their labels. Returns (stamps [F], uvd [F,1536,3], valid [F,1536],
+    labels [F,1536] int32 as numpy, float32 rig on ``device``, cfg,
+    world)."""
+    world = make_world(num_frames, seed=seed, n_shrubbery=60, n_dynamic=40)
+    cfg = LimoConfig()
+    stamps, uvd, valid, labels = dense_tracks(
+        world, cfg.capacity.max_landmarks, with_depth=True, seed=seed + 1,
+        with_labels=True)
+    on = lambda a: torch.as_tensor(np.asarray(a)[None], dtype=torch.float32,
+                                   device=device)
+    rig = CameraRig(focal=on(world.focal), principal=on(world.principal),
+                    T_cam_veh=on(world.T_cam_veh))
+    return stamps, uvd, valid, labels.astype(np.int32), rig, cfg, world
 
 
 def fused_drive(num_frames=200, seed=11, device="cuda"):

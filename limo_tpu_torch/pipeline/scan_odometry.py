@@ -262,7 +262,10 @@ def _select(cond, new, old):
     return type(old)(*[torch.where(cond, b, a) for a, b in zip(old, new)])
 
 
-def make_scan_step(rig, cfg, prior_mode: Optional[str] = None):
+def make_scan_step(rig, cfg, prior_mode: Optional[str] = None,
+                   outlier_labels=DEFAULT_OUTLIER_LABELS,
+                   shrubbery_labels=DEFAULT_SHRUBBERY_LABELS,
+                   ground_labels=DEFAULT_GROUND_LABELS):
     """Build the per-frame scan step function.
 
     Returns ``step(state, frame) -> (state, FrameOut)`` with
@@ -270,13 +273,18 @@ def make_scan_step(rig, cfg, prior_mode: Optional[str] = None):
     plane [4], plane_ok, ext_prior [7], ext_prior_ok)`` on the rig's
     device; use :func:`frame_arrays` to build the per-frame channels with
     reference defaults. ``step.stats`` (:class:`ScanStats`) counts its
-    frames, host reads and attempted solves. Labels are read against the
-    reference's cityscapes sets (``window_manager.DEFAULT_*_LABELS``).
+    frames, host reads and attempted solves.
 
     prior_mode: "constant_velocity" (the motion-model prior; the default via
     cfg.prior.scan_prior_mode), "essential" (a fresh 5-point prior against
     the last keyframe on every frame, the constant-velocity prior where
     RANSAC fails) or "identity".
+
+    outlier_labels, shrubbery_labels, ground_labels: the label ontology —
+    which class ids count as dynamic (rejected), vegetation (down-weighted)
+    and ground (groundplane landmarks). The defaults are the reference's
+    cityscapes sets (``window_manager.DEFAULT_*_LABELS``); the step reads
+    labels only through these sets, made once on the rig's device here.
     """
     if prior_mode is None:
         prior_mode = cfg.prior.scan_prior_mode
@@ -287,9 +295,9 @@ def make_scan_step(rig, cfg, prior_mode: Optional[str] = None):
     device = rig.focal.device
     table = lambda labels: torch.as_tensor(sorted(labels), dtype=torch.int32,
                                            device=device)
-    out_tab, shrub_tab, ground_tab = (table(DEFAULT_OUTLIER_LABELS),
-                                      table(DEFAULT_SHRUBBERY_LABELS),
-                                      table(DEFAULT_GROUND_LABELS))
+    out_tab, shrub_tab, ground_tab = (table(outlier_labels),
+                                      table(shrubbery_labels),
+                                      table(ground_labels))
     stats = ScanStats()
 
     def isin(label, tab):

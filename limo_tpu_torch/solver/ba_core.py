@@ -9,9 +9,13 @@ pipeline:
   residuals   r = [reprojection 2/obs | depth 1/obs | gp-height 1/lm | regs]
 
 The observation blocks come from the fused assembly kernel
-(:mod:`limo_tpu_torch.solver.cuda_assemble`) on a card (f32 only), and from
+(:mod:`limo_tpu_torch.solver.cuda_assemble`) on a card (f32), and from
 its plain PyTorch version on the CPU; both implement the analytic Jacobians
-of :mod:`limo_tpu_torch.solver.analytic`. Groundplane and regularizer
+of :mod:`limo_tpu_torch.solver.analytic`. Where the reference package takes
+its non-kernel route (:func:`assembly_plan`: the kernels turned off,
+rotation-compensated residuals, a float64 window on a card), they come from
+its ``_obs_system`` instead: ``vmap(jacfwd)`` over the flattened
+observation grid and five full-f32 contractions. Groundplane and regularizer
 Jacobians come from ``torch.func`` (forward/reverse mode) w.r.t. the local
 tangents (the ``boxplus`` retractions of
 :mod:`limo_tpu_torch.geometry.pose`). The reduced (pose+plane) system is
@@ -42,9 +46,10 @@ from torch.func import jacfwd, jacrev, vmap
 from .. import residuals as res_k
 from ..geometry import pose as pose_ops
 from ..geometry.quaternion import qnormalize, qto_matrix
-from ..robust import huber_weight
+from ..robust import cauchy_weight, huber_weight
 from ..state import Selection, Window
 from ..utils.collectives import all_reduce_sum
+from ..utils.precision import full_f32
 from ..utils.profiling import traced
 from . import cuda_assemble
 
@@ -92,26 +97,50 @@ class ResidualStats(NamedTuple):
     n_gp: torch.Tensor         # scalar int — gp residual count
 
 
-def assembly_plan(dtype, device, cfg) -> str:
+def assembly_plan(dtype, device, cfg, compensate_rotation: bool = False
+                  ) -> str:
     """Which observation assembly a solve with these parameters takes.
 
-    The device alone decides: ``"plain(cpu)"`` on the CPU (the kernels'
-    plain versions, any float dtype), ``"cuda[block=N]"`` on a card (the
-    hand-written kernels, N threads per block). A card has no
-    plain path, so this raises for a card window that is not float32 and
-    for ``SolverConfig.use_pallas_assembly=False`` there (the field stays in
-    the config for parity with the reference package)."""
-    device = torch.device(device)
-    if device.type == "cpu":
+    The kernels' route: ``"plain(cpu)"`` on the CPU (their plain versions,
+    any float dtype), ``"cuda[block=N]"`` on a card (the hand-written
+    kernels, N threads per block, float32). Where the reference package
+    takes its non-kernel ``einsum(<reason>)`` route, the port takes
+    ``"torch(<reason>)"`` (:func:`_torch_obs_blocks`) on either device, for
+    the reference's reasons: ``disabled`` (``SolverConfig.
+    use_pallas_assembly=False``), ``rotation-compensated`` (the kernels
+    compute plain reprojection residuals only) and ``dtype`` (a float64
+    window on a card). The caller's arguments alone decide; a card window
+    of another float type and any other device raise."""
+    reason = _torch_reason(dtype, device, cfg, compensate_rotation)
+    if reason is not None:
+        return f"torch({reason})"
+    if torch.device(device).type == "cpu":
         return "plain(cpu)"
-    if device.type != "cuda":
-        raise ValueError(f"no observation assembly for device {device}")
-    if dtype != torch.float32:
-        raise ValueError(f"the CUDA kernels take float32 windows, not {dtype}")
-    if not cfg.solver.use_pallas_assembly:
-        raise ValueError("use_pallas_assembly=False: the port has no "
-                         "assembly on the card other than its kernels")
     return f"cuda[block={cuda_assemble.block_size()}]"
+
+
+def _torch_reason(dtype, device, cfg, compensate_rotation: bool):
+    """The reference's reason for its non-kernel route, or None where the
+    port takes the kernels' route (see :func:`assembly_plan`)."""
+    device = torch.device(device)
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no observation assembly for device {device}")
+    if device.type == "cuda" and dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"no observation assembly on a card for {dtype}")
+    if not cfg.solver.use_pallas_assembly:
+        return "disabled"
+    if compensate_rotation:
+        return "rotation-compensated"
+    if device.type == "cuda" and dtype != torch.float32:
+        return "dtype"
+    return None
+
+
+def _kernel_route(window: Window, cfg, compensate_rotation: bool) -> bool:
+    """True where :func:`assembly_plan` picks the kernels (or their plain
+    versions), False for the ``torch(...)`` route."""
+    return _torch_reason(window.poses.dtype, window.poses.device, cfg,
+                         compensate_rotation) is None
 
 
 def _one_hot(idx, n, dtype):
@@ -155,11 +184,13 @@ def _obs_kernel_args(window: Window, sel: Selection, rig, cfg):
 
 
 # ---------------------------------------------------------------------------
-# Per-observation residuals (forward pass, for the trim scores).
+# Per-observation residuals on the dense [L,K,C] grid: the forward pass (trim
+# scores, the torch route's cost) and the reference's non-kernel assembly.
 # ---------------------------------------------------------------------------
 
 @traced("limo.obs_residuals")
-def _obs_system(window: Window, sel: Selection, rig):
+def _obs_system(window: Window, sel: Selection, rig,
+                compensate_rotation: bool):
     """Residuals for every (l,k,c) slot on the dense grid, with the masks.
 
     Returns (r [L,K,C,3], repr_ok [L,K,C], depth_ok [L,K,C])."""
@@ -171,7 +202,8 @@ def _obs_system(window: Window, sel: Selection, rig):
     pose = window.poses[None, :, None, :]                   # [1,K,1,7]
     lm = window.lm_pos[:, None, None, :]                    # [L,1,1,3]
     rr, proj_ok = res_k.reprojection(pose, lm, uvd[..., :2], f, pp,
-                                     Tcv[None, None])
+                                     Tcv[None, None],
+                                     compensate_rotation=compensate_rotation)
     rd, _ = res_k.landmark_depth(pose, lm, uvd[..., 2], Tcv[None, None])
     r = torch.cat([rr, rd], -1)
     lm_active = window.lm_valid & sel.lm_selected
@@ -183,6 +215,111 @@ def _obs_system(window: Window, sel: Selection, rig):
     depth_ok = base_ok & (window.obs[..., 2] > 0) \
         & window.lm_has_depth[:, None, None] & (z_cam > 0)
     return r, repr_ok, depth_ok
+
+
+def _obs_weights(window: Window, cfg, r, repr_ok, depth_ok):
+    """IRLS row weights [L,K,C,3] (Cauchy × landmark weight) and the robust
+    observation cost of the residuals of :func:`_obs_system`."""
+    robust_cfg = cfg.robust
+    s_repr = torch.sum(r[..., :2] ** 2, -1)
+    s_depth = r[..., 2] ** 2
+    w_lm = window.lm_weight[:, None, None]
+    zero = torch.zeros_like(s_repr)
+    w_repr = torch.where(repr_ok, w_lm * cauchy_weight(
+        s_repr, robust_cfg.reprojection_thres), zero)
+    w_depth = torch.where(depth_ok, w_lm * cauchy_weight(
+        s_depth, robust_cfg.depth_thres), zero)
+    row_w = torch.stack([w_repr, w_repr, w_depth], -1)
+    a2r = robust_cfg.reprojection_thres ** 2
+    a2d = robust_cfg.depth_thres ** 2
+    cost = 0.5 * torch.sum(torch.where(
+        repr_ok, w_lm * a2r * torch.log1p(s_repr / a2r), zero)) \
+        + 0.5 * torch.sum(torch.where(
+            depth_ok, w_lm * a2d * torch.log1p(s_depth / a2d), zero))
+    return row_w, cost
+
+
+def _obs_residual(pose_tangent, lm_delta, pose, lm, uvd, focal, principal,
+                  T_cam_veh, compensate_rotation):
+    """3-vector residual [repr_u, repr_v, depth] of one observation as a
+    function of the local tangents (for ``jacfwd``)."""
+    p = pose_ops.boxplus(pose, pose_tangent)
+    x = lm + lm_delta
+    rr, _ = res_k.reprojection(p, x, uvd[:2], focal, principal, T_cam_veh,
+                               compensate_rotation=compensate_rotation)
+    rd, _ = res_k.landmark_depth(p, x, uvd[2], T_cam_veh)
+    return torch.cat([rr, rd])
+
+
+@traced("limo.obs_jacobians")
+def _obs_jacobians(window: Window, rig, compensate_rotation: bool):
+    """Tangent Jacobians of every observation residual, by ``vmap(jacfwd)``
+    over the flattened landmark-major [L·K·C] grid (the reference's
+    ``_obs_system``). Returns (Jp [L,K,C,3,6], Jl [L,K,C,3,3])."""
+    K, L, C = window.K, window.L, window.C
+    N = L * K * C
+    dtype = window.poses.dtype
+    kw = dict(dtype=dtype, device=window.poses.device)
+
+    def flat(x):
+        """[..., d] broadcast to the grid → [N, d]."""
+        return x.expand(L, K, C, x.shape[-1]).reshape(N, x.shape[-1])
+
+    args = (torch.zeros((N, 6), **kw), torch.zeros((N, 3), **kw),
+            flat(window.poses[None, :, None]),
+            flat(window.lm_pos[:, None, None]),
+            window.obs.reshape(N, 3),
+            flat(rig.focal.to(dtype)[None, None, :, None])[:, 0],
+            flat(rig.principal.to(dtype)[None, None]),
+            flat(rig.T_cam_veh.to(dtype)[None, None]))
+
+    def one(pt, ld, *obs):
+        return _obs_residual(pt, ld, *obs, compensate_rotation)
+
+    Jp, Jl = vmap(jacfwd(one, argnums=(0, 1)))(*args)
+    return Jp.reshape(L, K, C, 3, 6), Jl.reshape(L, K, C, 3, 3)
+
+
+@traced("limo.torch_obs_blocks")
+@full_f32
+def _torch_obs_blocks(window: Window, sel: Selection, rig, cfg,
+                      compensate_rotation: bool) -> cuda_assemble.ObsBlocks:
+    """The observation blocks on the reference's non-kernel route: residuals,
+    masks and weights on the dense grid, ``vmap(jacfwd)`` Jacobians, and the
+    five contractions over the observation axes in full f32."""
+    r, repr_ok, depth_ok = _obs_system(window, sel, rig, compensate_rotation)
+    row_w, cost = _obs_weights(window, cfg, r, repr_ok, depth_ok)
+    Jp, Jl = _obs_jacobians(window, rig, compensate_rotation)
+    Jp_w = Jp * row_w[..., None]                            # rows scaled by w
+    Jl_w = Jl * row_w[..., None]
+    return cuda_assemble.ObsBlocks(
+        V=torch.einsum("lkcri,lkcrj->lij", Jl_w, Jl),
+        b_l=-torch.einsum("lkcri,lkcr->li", Jl_w, r),
+        W=torch.einsum("lkcri,lkcrj->lkij", Jp_w, Jl),
+        U=torch.einsum("lkcri,lkcrj->kij", Jp_w, Jp),
+        b_pose=-torch.einsum("lkcri,lkcr->ki", Jp_w, r),
+        cost=cost)
+
+
+def _obs_blocks(window: Window, sel: Selection, rig, cfg,
+                compensate_rotation: bool) -> cuda_assemble.ObsBlocks:
+    """The observation blocks on the route :func:`assembly_plan` picks."""
+    if not _kernel_route(window, cfg, compensate_rotation):
+        return _torch_obs_blocks(window, sel, rig, cfg, compensate_rotation)
+    ops, sizes = _obs_kernel_args(window, sel, rig, cfg)
+    return cuda_assemble.assemble_obs(*ops, **sizes)
+
+
+def _obs_cost(window: Window, sel: Selection, rig, cfg,
+              compensate_rotation: bool) -> torch.Tensor:
+    """The robust observation cost on the route :func:`assembly_plan`
+    picks (the cost-only kernel on the kernels' route)."""
+    if not _kernel_route(window, cfg, compensate_rotation):
+        r, repr_ok, depth_ok = _obs_system(window, sel, rig,
+                                           compensate_rotation)
+        return _obs_weights(window, cfg, r, repr_ok, depth_ok)[1]
+    ops, sizes = _obs_kernel_args(window, sel, rig, cfg)
+    return cuda_assemble.cost_obs(*ops, **sizes)
 
 
 def _gp_residual(pose_tangent, plane_tangent, lm_delta, pose, plane, lm):
@@ -233,8 +370,17 @@ def _gp_system(window: Window, sel: Selection, cfg, with_jacobians: bool):
 
 @traced("limo.assemble")
 def assemble(window: Window, sel: Selection, rig, cfg,
-             axis=None) -> NormalEqs:
+             compensate_rotation: bool = False, pose_only: bool = False,
+             speed_reg=None, axis=None) -> NormalEqs:
     """Build the (masked, undamped) normal equations at the current state.
+
+    ``compensate_rotation``: RotRocc reprojection residuals (divided by the
+    norm of the rotation-only reprojection error), on the ``torch(...)``
+    route. ``pose_only``: the motion-only solve of a window, landmarks held
+    fixed (``deactivateLandmarks``, :221-270) and every regularizer but the
+    speed family weighted 0. ``speed_reg``: ``(kf_index,
+    pose_origin_before, vel_before, dt, weight)`` for the constant-velocity
+    residual of keyframe ``kf_index`` (``adjustPoseOnly``:835-853).
 
     The trim scores are not a by-product here: :func:`residual_stats`
     computes them when a trim round needs them. With ``axis`` (the model
@@ -247,9 +393,9 @@ def assemble(window: Window, sel: Selection, rig, cfg,
     kw = dict(dtype=dtype, device=window.poses.device)
     lm_active = window.lm_valid & sel.lm_selected
 
-    # ---- observation blocks: fused kernel (plain version on the CPU) ----
-    ops, sizes = _obs_kernel_args(window, sel, rig, cfg)
-    obs = cuda_assemble.assemble_obs(*ops, **sizes)
+    # ---- observation blocks: fused kernel (plain version on the CPU), or
+    # the torch route where the reference takes its einsum route ----------
+    obs = _obs_blocks(window, sel, rig, cfg, compensate_rotation)
     U_k, b_pose_k, V, b_l, W_lk6, cost = (obs.U, obs.b_pose, obs.V, obs.b_l,
                                           obs.W, obs.cost)
 
@@ -283,7 +429,8 @@ def assemble(window: Window, sel: Selection, rig, cfg,
         H_pp, b_p, cost = flat[:P * P].reshape(P, P), flat[P * P:-1], flat[-1]
 
     # ---- regularization residuals (dense over pose+plane params) -------
-    reg_r, reg_w, reg_J = _regularizer_system(window, sel, cfg)
+    reg_r, reg_w, reg_J = _regularizer_system(window, sel, cfg, speed_reg,
+                                              pose_only)
     H_pp = H_pp + torch.einsum("r,ri,rj->ij", reg_w, reg_J, reg_J)
     b_p = b_p - torch.einsum("r,ri,r->i", reg_w, reg_J, reg_r)
     cost = cost + 0.5 * torch.sum(reg_w * reg_r * reg_r)
@@ -315,50 +462,57 @@ def assemble(window: Window, sel: Selection, rig, cfg,
         [plane_free[:, None].expand(K, 3),
          (plane_free & (~sel.plane_dist_fixed))[:, None]], dim=-1).to(dtype)
     param_mask = torch.cat([pose_dim_mask, plane_dim_mask], -1).reshape(P)
+    # motion-only: landmarks fixed (deactivateLandmarks, :221-270); the
+    # observation blocks above are the same, the masks below drop them
+    lm_free = torch.zeros_like(lm_active) if pose_only else lm_active
 
     # apply masks: zero fixed rows/cols; unit diagonal added later w/ damping
     H_pp = H_pp * param_mask[:, None] * param_mask[None, :]
     b_p = b_p * param_mask
-    lm_f = lm_active.to(dtype)
+    lm_f = lm_free.to(dtype)
     W6 = W6 * pose_dim_mask[None, :, :, None] * lm_f[:, None, None, None]
     # the plane block's gauge mask gathered at each landmark's gp keyframe
     Wp = Wp * (gp_oh @ plane_dim_mask)[:, :, None] * lm_f[:, None, None]
-    V = torch.where(lm_active[:, None, None], V,
+    V = torch.where(lm_free[:, None, None], V,
                     torch.eye(3, **kw).expand(L, 3, 3))
     b_l = b_l * lm_f[:, None]
     return NormalEqs(H_pp=H_pp, b_p=b_p, V=V, b_l=b_l, W6=W6, Wp=Wp,
                      gp_oh=gp_oh, cost=cost, param_mask=param_mask,
-                     lm_mask=lm_active)
+                     lm_mask=lm_free)
 
 
 @traced("limo.compute_cost")
 def compute_cost(window: Window, sel: Selection, rig, cfg,
-                 axis=None) -> torch.Tensor:
-    """Robust cost only — no jacobians. Used for LM accept/reject.
+                 compensate_rotation: bool = False, pose_only: bool = False,
+                 speed_reg=None, axis=None) -> torch.Tensor:
+    """Robust cost only — no jacobians. Used for LM accept/reject; the
+    modes are :func:`assemble`'s.
 
-    On a card the observation cost comes from the cost-only kernel (the
-    same f32 arithmetic as assemble's cost, so accept/reject comparisons
-    are internally consistent). With ``axis`` the observation and
+    On a card's kernel route the observation cost comes from the cost-only
+    kernel (the same f32 arithmetic as assemble's cost, so accept/reject
+    comparisons are internally consistent); on the torch route from the
+    forward pass of the grid. With ``axis`` the observation and
     groundplane cost is summed over the shards before the regularizers'
     cost is added."""
-    ops, sizes = _obs_kernel_args(window, sel, rig, cfg)
-    cost = cuda_assemble.cost_obs(*ops, **sizes)
+    cost = _obs_cost(window, sel, rig, cfg, compensate_rotation)
     _, _, _, gp_cost, _, _ = _gp_system(window, sel, cfg, with_jacobians=False)
     (cost,) = all_reduce_sum([cost + gp_cost], axis)
-    reg_r, reg_w, _ = _regularizer_system(window, sel, cfg,
-                                          with_jacobian=False)
+    reg_r, reg_w, _ = _regularizer_system(window, sel, cfg, speed_reg,
+                                          pose_only, with_jacobian=False)
     return cost + 0.5 * torch.sum(reg_w * reg_r * reg_r)
 
 
 @traced("limo.residual_stats")
 def residual_stats(window: Window, sel: Selection, rig, cfg,
+                   compensate_rotation: bool = False,
                    axis=None) -> ResidualStats:
     """Loss-free per-landmark residual scores for trimming — forward pass
     only (``calculateResiduals``/``getMaximumResidual``,
     robust_solving.cpp:16-91 evaluate without loss). The scores are the
     shard's own; with ``axis`` the two counts are summed over the
     shards."""
-    r_obs, repr_ok, depth_ok = _obs_system(window, sel, rig)
+    r_obs, repr_ok, depth_ok = _obs_system(window, sel, rig,
+                                           compensate_rotation)
     r_gp, _, gp_on, _, _, _ = _gp_system(window, sel, cfg, with_jacobians=False)
     s_repr = torch.linalg.vector_norm(r_obs[..., :2], dim=-1)
     s_depth = torch.abs(r_obs[..., 2])
@@ -379,8 +533,8 @@ def residual_stats(window: Window, sel: Selection, rig, cfg,
 
 
 @traced("limo.regularizers")
-def _regularizer_system(window: Window, sel: Selection, cfg,
-                        with_jacobian: bool = True):
+def _regularizer_system(window: Window, sel: Selection, cfg, speed_reg=None,
+                        pose_only: bool = False, with_jacobian: bool = True):
     """All pose/plane-only regularizers as one stacked residual vector with
     a dense jacobian over the P parameters. Fixed residual count R.
 
@@ -390,6 +544,10 @@ def _regularizer_system(window: Window, sel: Selection, cfg,
       plane dist chain:     (K-1)  — d_k − d_{k+1} (weight w)
       plane motion:         (K-1)  — n_k · Δt̂ (weight 2w)
       plane prior:          3K     — n_k − (0,0,1) (weight w)
+      speed (motion-only):  3      — constant-velocity vector residual of
+                                     keyframe ``speed_reg[0]`` (weight
+                                     ``speed_reg[4]``)
+    Under ``pose_only`` every family but the speed one has weight 0.
     """
     K = window.K
     P = K * PD
@@ -418,6 +576,11 @@ def _regularizer_system(window: Window, sel: Selection, cfg,
     oh_s0 = _one_hot(sel.scale_kf0, K, dtype)    # [K]
     oh_s1 = _one_hot(sel.scale_kf1, K, dtype)
     prior = torch.eye(3, **kw)[2]                # (0,0,1), made on the device
+    if speed_reg is not None:
+        kf_i, pose_origin_before, vel_before, dt, speed_w = speed_reg
+        if not torch.is_tensor(kf_i):        # a fill, not an upload
+            kf_i = torch.full((), kf_i, dtype=torch.long, device=kw["device"])
+        oh_sp = _one_hot(kf_i, K, dtype)         # [K]
 
     def pick(oh, x):
         return oh @ x
@@ -434,8 +597,14 @@ def _regularizer_system(window: Window, sel: Selection, cfg,
         r_motion, _ = res_k.groundplane_motion(poses_a, poses_b,
                                                planes_a[:, :3])
         r_prior = planes[:, :3] - prior
-        return torch.cat([r_scale, r_ndiff.reshape(-1), r_ddiff,
-                          r_motion.reshape(-1), r_prior.reshape(-1)])
+        parts = [r_scale, r_ndiff.reshape(-1), r_ddiff, r_motion.reshape(-1),
+                 r_prior.reshape(-1)]
+        if speed_reg is not None:
+            r_speed, _ = res_k.speed_vector(pick(oh_sp, poses),
+                                            pose_origin_before, vel_before,
+                                            dt)
+            parts.append(r_speed)
+        return torch.cat(parts)
 
     delta0 = torch.zeros((K * PD,), **kw)
     r = all_res(delta0.reshape(K, PD))
@@ -443,11 +612,17 @@ def _regularizer_system(window: Window, sel: Selection, cfg,
          if with_jacobian else None)
 
     # weights per residual row
-    w = torch.cat([
-        sel.scale_weight.reshape(1).to(dtype),
-        (3.0 * w_gp) * chain_plane_ok.to(dtype).repeat_interleave(3),
-        w_gp * chain_plane_ok.to(dtype),
-        (2.0 * w_gp) * (pair_ok & plane_ok[ia]).to(dtype),
-        w_gp * plane_ok.to(dtype).repeat_interleave(3),
-    ])
+    w = [sel.scale_weight.reshape(1).to(dtype),
+         (3.0 * w_gp) * chain_plane_ok.to(dtype).repeat_interleave(3),
+         w_gp * chain_plane_ok.to(dtype),
+         (2.0 * w_gp) * (pair_ok & plane_ok[ia]).to(dtype),
+         w_gp * plane_ok.to(dtype).repeat_interleave(3)]
+    if speed_reg is not None:
+        w.append(torch.ones((3,), **kw) * speed_w)
+    w = torch.cat(w)
+    if pose_only:
+        # the motion-only solve keeps only the speed family
+        n_speed = 3 if speed_reg is not None else 0
+        w = w * torch.cat([torch.zeros((w.shape[0] - n_speed,), **kw),
+                           torch.ones((n_speed,), **kw)])
     return r, w, (J.reshape(r.shape[0], P) if with_jacobian else None)

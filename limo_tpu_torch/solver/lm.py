@@ -144,25 +144,34 @@ def select(accept, cand: Window, old: Window) -> Window:
 
 @full_f32
 def run_lm(window: Window, sel: Selection, rig, cfg, max_iters: int,
-           axis=None):
+           compensate_rotation: bool = False, pose_only: bool = False,
+           speed_reg=None, initial_lambda=None, axis=None):
     """Run up to ``max_iters`` accepted+rejected LM steps. Returns
     (window, final_cost, final_lambda, n_accepted).
 
-    The loop reads one flag back to the host per iteration (``done``); it
-    derives from reduced costs alone, so with ``axis`` every rank reads
-    the same flag."""
+    ``compensate_rotation``, ``pose_only`` and ``speed_reg`` are
+    :func:`~.ba_core.assemble`'s modes (the windowed motion-only solve:
+    ``pose_only=True`` with the speed regularizer); the loop starts from
+    ``initial_lambda`` (default ``cfg.solver.initial_lambda``). The loop
+    reads one flag back to the host per iteration (``done``); it derives
+    from reduced costs alone, so with ``axis`` every rank reads the same
+    flag."""
     scfg = cfg.solver
     mode = getattr(scfg, "motion_parameterization", "full_dof")
-    cost = compute_cost(window, sel, rig, cfg, axis)
-    lam = torch.full((), scfg.initial_lambda, dtype=window.poses.dtype,
-                     device=window.poses.device)
+    modes = dict(compensate_rotation=compensate_rotation, pose_only=pose_only,
+                 speed_reg=speed_reg, axis=axis)
+    cost = compute_cost(window, sel, rig, cfg, **modes)
+    lam0 = scfg.initial_lambda if initial_lambda is None else initial_lambda
+    kw = dict(dtype=window.poses.dtype, device=window.poses.device)
+    lam = (lam0.to(**kw) if torch.is_tensor(lam0)
+           else torch.full((), lam0, **kw))
     n_accepted = torch.zeros((), dtype=torch.int32, device=lam.device)
     for _ in range(int(max_iters)):
         # one full assembly for the step; candidate judged by cost only
-        eqs = assemble(window, sel, rig, cfg, axis)
+        eqs = assemble(window, sel, rig, cfg, **modes)
         delta_p, delta_l = solve_normal_equations(eqs, lam, axis)
         cand = apply_step(window, delta_p, delta_l, mode)
-        new_cost = compute_cost(cand, sel, rig, cfg, axis)
+        new_cost = compute_cost(cand, sel, rig, cfg, **modes)
         accept = torch.isfinite(new_cost) & (new_cost < cost)
         window = select(accept, cand, window)
         rel_decrease = (cost - new_cost) / torch.clamp_min(cost, 1e-12)

@@ -76,8 +76,13 @@ def trace_capacity(cfg) -> int:
 
 
 @full_f32
-def solve_trimmed(window: Window, sel: Selection, rig, cfg, axis=None):
+def solve_trimmed(window: Window, sel: Selection, rig, cfg,
+                  compensate_rotation: bool = False, axis=None):
     """Full trimmed solve. Returns (window, selection, SolveInfo).
+
+    ``compensate_rotation`` solves on RotRocc reprojection residuals (its
+    cost, assembly and trim scores; the ``torch(rotation-compensated)``
+    route of :func:`~.ba_core.assembly_plan`).
 
     The returned selection has trimmed landmarks removed (mask cleared) —
     mirroring the reference's permanent RemoveResidualBlock surgery. With
@@ -90,7 +95,8 @@ def solve_trimmed(window: Window, sel: Selection, rig, cfg, axis=None):
     dtype = window.poses.dtype
     device = window.poses.device
     mode = getattr(scfg, "motion_parameterization", "full_dof")
-    assembly_plan(dtype, device, cfg)        # raises where no path exists
+    # raises where no route exists
+    assembly_plan(dtype, device, cfg, compensate_rotation)
 
     num_rounds = rcfg.num_trim_iterations
     budget = rcfg.trim_iteration_lm_steps
@@ -103,7 +109,8 @@ def solve_trimmed(window: Window, sel: Selection, rig, cfg, axis=None):
         return sel._replace(lm_selected=mask)
 
     def get_cost(w, mask):
-        return compute_cost(w, sel_with(mask), rig, cfg, axis)
+        return compute_cost(w, sel_with(mask), rig, cfg,
+                            compensate_rotation, axis=axis)
 
     def initial_lam():
         return torch.full((), scfg.initial_lambda, dtype=dtype, device=device)
@@ -131,7 +138,8 @@ def solve_trimmed(window: Window, sel: Selection, rig, cfg, axis=None):
         Sharded, the families' scores and masks of every shard come in one
         gather: each family is trimmed on the whole vector, as unsharded,
         and the counts are global without another collective."""
-        stats = residual_stats(window, sel_with(lm_selected), rig, cfg, axis)
+        stats = residual_stats(window, sel_with(lm_selected), rig, cfg,
+                               compensate_rotation, axis)
         # per-family TrimmerSpecification (apply_trimmer.hpp:29-45)
         fam = (
             (stats.repr_score, stats.repr_valid, rcfg.reprojection_trimmer,
@@ -157,7 +165,8 @@ def solve_trimmed(window: Window, sel: Selection, rig, cfg, axis=None):
 
     while not done and round_idx <= num_rounds:
         # ---- one LM iteration ------------------------------------------
-        eqs = assemble(window, sel_with(lm_selected), rig, cfg, axis)
+        eqs = assemble(window, sel_with(lm_selected), rig, cfg,
+                       compensate_rotation, axis=axis)
         delta_p, delta_l = solve_normal_equations(eqs, lam, axis)
         cand = apply_step(window, delta_p, delta_l, mode)
         new_cost = get_cost(cand, lm_selected)

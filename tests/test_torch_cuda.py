@@ -27,10 +27,11 @@ import torch
 
 from limo_tpu_torch.config import LimoConfig
 from limo_tpu_torch.entry import kernel_check_windows, make_problem, \
-    rolled_window, scan_drive, two_camera_window
+    rolled_window, scan_drive, speed_regularizer, two_camera_window
 from limo_tpu_torch.pipeline import scan_odometry as so
 from limo_tpu_torch.solver import ba_core as t_ba
 from limo_tpu_torch.solver import cuda_assemble as ca
+from limo_tpu_torch.solver import run_lm
 from limo_tpu_torch.solver import solve_trimmed as t_solve_trimmed
 
 
@@ -47,21 +48,23 @@ def _port_problem():
 
 
 def test_assembly_plan_and_cpu_dispatch():
-    """The device alone picks the path: the plain one on the CPU, the
-    kernels on a card, which has no plain path (a card window that is not
-    float32, or a config that turns the kernels off, raises). On CPU
+    """The caller's arguments pick the path: the kernels' route (their
+    plain versions on the CPU), or the reference's non-kernel route as
+    ``torch(<reason>)`` on either device where the reference takes its
+    einsum route (the kernels turned off, a float64 window on a card). A
+    card window of another float type and another device raise. On CPU
     tensors the wrappers run their plain versions without launching
     anything."""
     w, sel, rig, cfg = _port_problem()
     off = cfg.replace(solver=dataclasses.replace(cfg.solver,
                                                  use_pallas_assembly=False))
     for dtype in (torch.float32, torch.float64):
-        for c in (cfg, off):
-            assert t_ba.assembly_plan(dtype, "cpu", c) == "plain(cpu)"
-    for dtype, c in ((torch.float32, off), (torch.float64, cfg),
-                     (torch.float16, cfg)):
-        with pytest.raises(ValueError):
-            t_ba.assembly_plan(dtype, "cuda", c)
+        assert t_ba.assembly_plan(dtype, "cpu", cfg) == "plain(cpu)"
+        assert t_ba.assembly_plan(dtype, "cpu", off) == "torch(disabled)"
+    assert t_ba.assembly_plan(torch.float32, "cuda", off) == "torch(disabled)"
+    assert t_ba.assembly_plan(torch.float64, "cuda", cfg) == "torch(dtype)"
+    with pytest.raises(ValueError):
+        t_ba.assembly_plan(torch.float16, "cuda", cfg)
     with pytest.raises(ValueError):
         t_ba.assembly_plan(torch.float32, "meta", cfg)
     ops, sizes = t_ba._obs_kernel_args(w, sel, rig, cfg)
@@ -301,6 +304,32 @@ def test_solve_trimmed_on_card(cuda):
         == 1 + info.n_iterations + info.n_rounds
     assert info.n_rounds == 1 and int(info.n_trimmed) == 77
     assert abs(float(info.final_cost) - 1612.640648) / 1612.640648 < 1e-4
+
+
+@pytest.mark.gpu
+def test_windowed_motion_only_solve_on_card(cuda):
+    """The windowed motion-only solve (``pose_only`` with the speed
+    regularizer) on the bench fixture: both kernels against their plain
+    versions on its window, one assembly per LM iteration and one cost
+    evaluation more, the landmarks bit-identical, the cost down."""
+    w, sel, rig, cfg = make_problem(20, 1536, 12, 800, torch.float32,
+                                    seed=1, device=cuda)
+    assert t_ba.assembly_plan(torch.float32, cuda, cfg).startswith("cuda")
+    ops, sizes = t_ba._obs_kernel_args(w, sel, rig, cfg)
+    ca.compare_with_plain(ops, sizes)
+    speed = speed_regularizer(w)
+    max_iters = cfg.solver.pose_only_max_iterations
+    cost0 = t_ba.compute_cost(w, sel, rig, cfg, pose_only=True,
+                              speed_reg=speed)
+    before = dict(ca.launches)
+    out_w, cost, _, n_acc = run_lm(w, sel, rig, cfg, max_iters,
+                                   pose_only=True, speed_reg=speed,
+                                   initial_lambda=1e-3)
+    n_asm = ca.launches["assemble_obs"] - before["assemble_obs"]
+    assert 1 <= n_asm <= max_iters
+    assert ca.launches["cost_obs"] - before["cost_obs"] == 1 + n_asm
+    assert torch.equal(out_w.lm_pos, w.lm_pos)
+    assert int(n_acc) > 0 and float(cost) < float(cost0)
 
 
 @pytest.mark.gpu

@@ -1,5 +1,5 @@
 """Rank processes of the port's multi-process tests (tests/test_torch_
-{sharding,multihost,entry}.py), started by ``limo_tpu_torch.parallel.spawn``
+{sharding,multihost,entry,solver_modes}.py), started by ``limo_tpu_torch.parallel.spawn``
 over ``gloo`` on the CPU.
 
 Each function runs in every rank of a fresh process (one torch thread, as
@@ -20,6 +20,7 @@ from limo_tpu_torch.parallel import (gather_selection, gather_window,
                                      shard_selection, shard_window)
 from limo_tpu_torch.parallel.sharding import MODEL_AXIS
 from limo_tpu_torch.pipeline import scan_odometry as so
+from limo_tpu_torch.solver import solve_trimmed
 
 # every quantile trim case: (quantile, fraction valid)
 TRIM_CASES = ((0.5, 1.0), (0.9, 0.7), (0.25, 0.3))
@@ -69,6 +70,19 @@ def sharded_solves(w, sel, rig, cfg, scores):
             robust.trim_quantile(s, valid, q)[shard].numpy()))
     out["trims"] = trims
     return out
+
+
+def rotrocc_sharded_solve(w, sel, rig, cfg):
+    """On every rank of a model-only mesh: the rotation-compensated trimmed
+    solve of this rank's landmark shard, gathered."""
+    torch.set_num_threads(1)
+    mesh = make_mesh(dist.get_world_size(), data=1, device_type="cpu")
+    out_w, out_s, info = solve_trimmed(
+        shard_window(w, mesh), shard_selection(sel, mesh), rig, cfg,
+        compensate_rotation=True, axis=mesh.get_group(MODEL_AXIS))
+    return {"window": _numpy(gather_window(out_w, mesh)),
+            "selected": gather_selection(out_s, mesh).lm_selected.numpy(),
+            "info": _numpy(info)}
 
 
 def mh_scenario(rig, cfg, seqs):

@@ -152,16 +152,18 @@ def assert_frame_out(ref, port, cost_rtol, where=""):
     assert_close(port.cost, ref.cost, cost_rtol, 0.0, f"{where} FrameOut.cost")
 
 
-def scan_step_by_step(kind):
-    """Run the reference's jitted scan step frame by frame in f64 on drive
-    ``kind``; before each frame hand the reference's state to the port and
-    run one port step from it. Asserts each frame's FrameOut and the next
-    state. Returns the reference's FrameOuts (numpy) and the port step."""
-    chans, rig, cfg, _ = scan_drive(kind)
+def scan_step_by_step(kind, num_frames=24, **label_sets):
+    """Run the reference's jitted scan step frame by frame in f64 on the
+    first ``num_frames`` frames of drive ``kind``; before each frame hand
+    the reference's state to the port and run one port step from it (both
+    steps built with ``label_sets``, ``make_scan_step``'s label-set
+    keywords). Asserts each frame's FrameOut and the next state. Returns
+    the reference's FrameOuts (numpy) and the port step."""
+    chans, rig, cfg, _ = scan_drive(kind, num_frames)
     trig, tcfg = port_of(rig, cfg)
     st = jso.init_state(cfg.capacity, jnp.float64, cfg.prior.default_speed)
-    jstep = jax.jit(jso.make_scan_step(rig, cfg))
-    tstep = tso.make_scan_step(trig, tcfg)
+    jstep = jax.jit(jso.make_scan_step(rig, cfg, **label_sets))
+    tstep = tso.make_scan_step(trig, tcfg, **label_sets)
     args = (chans["stamps"], chans["uvd_seq"], chans["valid_seq"])
     kw = dict(labels=chans["labels"], priors=chans["priors"])
     xs = jso.frame_arrays(*args, cfg, jnp.float64, stamp_dtype=jnp.float64,
