@@ -1,0 +1,8 @@
+"""Percent of the HBM roofline the assembly kernel's range reached
+(``peaks.roofline_share``)."""
+
+from ..peaks import roofline_share
+
+
+def read(record):
+    return roofline_share(record, "assemble_obs")
