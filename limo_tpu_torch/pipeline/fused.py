@@ -41,7 +41,7 @@ from ..geometry import pose as pose_ops
 from ..geometry import pose_host
 from ..geometry.camera import backproject
 from ..utils.precision import full_f32
-from ..utils.profiling import traced
+from ..utils.profiling import span, traced
 from ..window_manager import DEFAULT_OUTLIER_LABELS
 from . import scan_odometry as so
 from .full import LimoPipelineConfig, frontend_depth_plane
@@ -186,7 +186,7 @@ def make_fused_step(rig, cfg: LimoConfig, pcfg: LimoPipelineConfig):
         dev = uv_f.device
 
         # ---- 1. guided matching -----------------------------------------
-        with torch.profiler.record_function("limo.match"):
+        with span("limo.match"):
             pred_uv, pred_known = predict_uv(fst, rig, tcfg)
             zeros = torch.zeros_like(valid_f, dtype=dtype)
             feats = trk.Features(uv=uv_f, response=zeros, desc=desc_f,
@@ -197,7 +197,7 @@ def make_fused_step(rig, cfg: LimoConfig, pcfg: LimoPipelineConfig):
                           pred_known=pred_known)
 
         # ---- 2. the track table and 3. the per-slot channels ------------
-        with torch.profiler.record_function("limo.track_table"):
+        with span("limo.track_table"):
             slot = _assign_slots(m.prev_index, fst.slot_of_feat, valid_f,
                                  fst.scan.window.lm_valid)
             ok = valid_f & (slot >= 0)
@@ -254,10 +254,10 @@ def make_fused_runner(rig, cfg: LimoConfig, pcfg: LimoPipelineConfig,
         """Per-feature channels of the chunk's frames: (stamps, uv, desc,
         valid, depth, label, plane, plane_ok), each with a frame axis."""
         stamps, imgs_u8, clouds, cloud_valid, label_imgs = xs
-        with torch.profiler.record_function("limo.gamma_detect"):
+        with span("limo.gamma_detect"):
             imgs = (imgs_u8.to(dtype) / 255.0) ** inv_gamma
             feats = trk.detect(imgs, tcfg)
-        with torch.profiler.record_function("limo.labels"):
+        with span("limo.labels"):
             if with_labels:
                 li = label_imgs.to(torch.int32)
                 lab_f = sample_labels(
@@ -270,7 +270,7 @@ def make_fused_runner(rig, cfg: LimoConfig, pcfg: LimoPipelineConfig,
         pp0 = rig.principal[0].to(dtype)
         per_frame = []
         for i in range(len(stamps)):
-            with torch.profiler.record_function("limo.depth_plane"):
+            with span("limo.depth_plane"):
                 per_frame.append(frontend_depth_plane(
                     clouds[i], cloud_valid[i], tcv, feats.uv[i], f0, pp0,
                     image_size, lcfg, pcfg.use_groundplane,

@@ -16,7 +16,9 @@ masks: the push is computed on every frame and selected with
 windowed solve, which is far too expensive to run speculatively: the step
 reads ``do_solve`` back to the host once per frame and runs the solve only
 when it is set. :class:`ScanStats` counts those reads beside the solves'
-own (``SolveInfo.n_host_syncs``).
+own (``SolveInfo.n_host_syncs``); each is a ``limo.sync`` span
+(``utils.profiling.host_read``), and each frame a ``limo.scan_step`` span
+that sets the frame id of the spans inside it.
 """
 
 from __future__ import annotations
@@ -38,7 +40,7 @@ from ..selection.landmark import norm, take
 from ..solver.pose_only import pose_only_step
 from ..solver.trimmed import solve_trimmed
 from ..state import Window, empty_window
-from ..utils.profiling import traced
+from ..utils.profiling import host_read, span, traced
 from ..window_manager import (DEFAULT_GROUND_LABELS, DEFAULT_OUTLIER_LABELS,
                               DEFAULT_SHRUBBERY_LABELS, selection_for_solve)
 
@@ -335,8 +337,11 @@ def make_scan_step(rig, cfg, prior_mode: Optional[str] = None,
         ess = pose_ops.normalize(pose_ops.compose(delta, st.last_kf_pose))
         return torch.where(res.ok, ess, cv_prior)
 
-    @traced("limo.scan_step")
     def step(st: ScanState, frame):
+        with span("limo.scan_step", frame=stats.frames):
+            return frame_step(st, frame)
+
+    def frame_step(st: ScanState, frame):
         (stamp, uvd, valid, label, flag_out, plane, plane_ok,
          ext_prior, ext_prior_ok) = frame
         dtype = st.cur_pose.dtype
@@ -440,7 +445,7 @@ def make_scan_step(rig, cfg, prior_mode: Optional[str] = None,
 
         # ---- 4. push (slot write + landmark init + plane), deactivation
         # at push, selected by take_kf ----------------------------------
-        with torch.profiler.record_function("limo.push"):
+        with span("limo.push"):
             slot = _write_slot(window.stamps, window.kf_valid)
             pushed, fresh = _push_keyframe(window, slot, stamp, refined, uvd,
                                            valid, plane, plane_ok, rig)
@@ -465,8 +470,8 @@ def make_scan_step(rig, cfg, prior_mode: Optional[str] = None,
         stats.host_syncs += 1
         sel_mask = st.sel_mask
         cost = torch.zeros((), dtype=dtype, device=dev)
-        if bool(do_solve):
-            with torch.profiler.record_function("limo.selection"):
+        if host_read(do_solve):
+            with span("limo.selection"):
                 w = _deactivate(window, newest_slot, cfg)
                 k0, k1 = _oldest_two(w.stamps, w.kf_valid)
                 sel, _ = selection_for_solve(w, newest_slot, k0, k1,

@@ -28,7 +28,7 @@ from ..geometry import pose as pose_ops
 from ..state import Selection, Window
 from ..utils.collectives import all_reduce_sum
 from ..utils.precision import full_f32
-from ..utils.profiling import traced
+from ..utils.profiling import host_read, traced
 from .ba_core import PD, assemble, compute_cost, plane_boxplus
 
 
@@ -184,6 +184,6 @@ def run_lm(window: Window, sel: Selection, rig, cfg, max_iters: int,
                                           scfg.max_lambda))
         cost = torch.where(accept, new_cost, cost)
         n_accepted = n_accepted + accept.to(torch.int32)
-        if bool(converged | stuck):
+        if host_read(converged | stuck):
             break
     return window, cost, lam, n_accepted

@@ -47,6 +47,7 @@ from ..robust import residuals_to_remove
 from ..state import Selection, Window
 from ..utils.collectives import all_gather_cat, all_reduce_sum, local_part
 from ..utils.precision import full_f32
+from ..utils.profiling import host_read, traced
 from .ba_core import assemble, assembly_plan, compute_cost, residual_stats
 from .lm import apply_step, select, solve_normal_equations
 
@@ -75,6 +76,7 @@ def trace_capacity(cfg) -> int:
             + scfg.refinement_iterations)
 
 
+@traced("limo.solve_trimmed")
 @full_f32
 def solve_trimmed(window: Window, sel: Selection, rig, cfg,
                   compensate_rotation: bool = False, axis=None):
@@ -133,6 +135,7 @@ def solve_trimmed(window: Window, sel: Selection, rig, cfg,
     it_in_round = it_total = round_idx = n_syncs = 0
     extended = done = False
 
+    @traced("limo.trim")
     def trim(window, lm_selected):
         """One trim round: new selection, outlier count, family counts.
         Sharded, the families' scores and masks of every shard come in one
@@ -197,11 +200,12 @@ def solve_trimmed(window: Window, sel: Selection, rig, cfg,
             done = at_budget
             if not done:
                 n_syncs += 1
-                done = bool(converged | (lam >= scfg.max_lambda))
+                done = host_read(converged | (lam >= scfg.max_lambda))
         elif at_budget:
             # divergence retry: trim rounds only (robust_solving.cpp:172-181)
             n_syncs += 1
-            extend = not extended and not bool(cost < round_start_cost)
+            extend = not extended and not host_read(
+                cost < round_start_cost)
             extended = extended or extend
             if not extend:
                 lm_selected, counts = trim(window, lm_selected)

@@ -26,6 +26,8 @@ import time
 import torch
 import torch.distributed as dist
 
+from .profiling import span
+
 stats = {"calls": 0, "seconds": 0.0}
 
 
@@ -36,7 +38,7 @@ def all_reduce_sum(tensors, group):
     tensors = list(tensors)
     if group is None:
         return tensors
-    with torch.profiler.record_function("limo.all_reduce"):
+    with span("limo.all_reduce"):
         t0 = time.perf_counter()
         flat = torch.cat([t.reshape(-1) for t in tensors])
         dist.all_reduce(flat, group=group)

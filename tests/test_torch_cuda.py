@@ -1,6 +1,8 @@
 """The port's CUDA kernel wrappers: CPU dispatch, operand checks, the
 evaluation counts of the solve, and — on a card — each kernel against its
-plain version and the bench solve through both kernels.
+plain version and the bench solve through both kernels; on the card too,
+the host reads of the benchmark's ``scan.drive`` frames against sync debug
+mode, and the span recorder's times against the profiler's.
 
 This file needs neither JAX nor the reference package, so the card's
 tests run where only PyTorch is installed (the repository's
@@ -19,11 +21,16 @@ import dataclasses
 import re
 import shutil
 import subprocess
+import time
+import traceback
 import types
+import warnings
+from collections import Counter
 from pathlib import Path
 
 import pytest
 import torch
+from torch.autograd import DeviceType
 
 from limo_tpu_torch.config import LimoConfig
 from limo_tpu_torch.entry import kernel_check_windows, make_problem, \
@@ -344,6 +351,122 @@ def test_scan_drive_repeats_on_card(cuda):
                   "pose", "cost"):
         assert torch.equal(getattr(runs[0], field), getattr(runs[1], field))
     assert int(runs[0].is_keyframe.sum()) >= 2
+
+
+def _bench_scan_drive(device):
+    """The benchmark's ``scan.drive`` cell as ``limo_bench/drivers/scan.py``
+    builds it (seed 3200000001): (scan_odometry module, its
+    make_scan_step(), frames, initial state)."""
+    from limo_bench import harness
+    from limo_bench.drivers import scan as drv
+    _, _, traffic, config = harness.cell_files("scan.drive",
+                                               harness.load_manifest())
+    stamps, uvd, valid, world = drv.inputs(traffic, config, 3200000001)
+    system = drv.port_system(config, world, device)
+    frames = drv.frames_of(system, stamps, uvd, valid, device)
+    st0 = system.so.init_state(system.cfg.capacity, system.dtype,
+                               system.cfg.prior.default_speed, device)
+    return system.so, lambda: system.so.make_scan_step(
+        system.rig, system.cfg), frames, st0
+
+
+def _drive_to_solves(step, frames, st0, n_solves):
+    st = st0
+    for fr in frames:
+        st, _ = step(st, fr)
+        if len(step.stats.solves) >= n_solves:
+            break
+    return step
+
+
+@pytest.mark.gpu
+def test_scan_drive_syncs_are_host_reads(cuda):
+    """The frames of ``scan.drive`` up to its second trimmed solve, warmed
+    once, then run again under sync debug mode with the span recorder on:
+    every synchronizing call PyTorch reports is a ``limo.sync`` span
+    (``profiling.host_read``), and their count is ``ScanStats.host_syncs``.
+    The message names each synchronizing call's innermost caller in the
+    port."""
+    from limo_tpu_torch.utils import profiling
+    _, make_step, frames, st0 = _bench_scan_drive(cuda)
+    _drive_to_solves(make_step(), frames, st0, 2)
+    step = make_step()
+    torch.cuda.synchronize()
+    callers = Counter()
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        # (not sync debug mode's own notice, when it is switched on)
+        if "called a synchronizing CUDA operation" in str(message):
+            stack = traceback.extract_stack()[:-1]
+            own = [f for f in stack if "limo_tpu_torch" in f.filename]
+            where = own[-1:] or stack[-3:]
+            callers[" < ".join(f"{Path(f.filename).name}:{f.lineno}"
+                               for f in reversed(where))] += 1
+
+    rec = profiling.SpanRecorder()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        rec.start()
+        try:
+            _drive_to_solves(step, frames, st0, 2)
+        finally:
+            rec.stop()
+            torch.cuda.set_sync_debug_mode("default")
+    reads = sum(s.name == "limo.sync" for s in rec.snapshot())
+    msg = (f"{step.stats.frames} frames, {len(step.stats.solves)} solves: "
+           f"synchronizing calls {sum(callers.values())} {dict(callers)}, "
+           f"limo.sync spans {reads}, host_syncs {step.stats.host_syncs}")
+    print(msg)
+    assert len(step.stats.solves) == 2, msg
+    assert sum(callers.values()) == reads == step.stats.host_syncs, msg
+
+
+@pytest.mark.gpu
+def test_span_times_on_the_profilers_clock_on_card(cuda):
+    """``scan.drive``'s first solve frame, recorded under the profiler
+    (host and card): each span starts and ends within 50 us of the
+    profiler's event for it."""
+    from torch.profiler import ProfilerActivity, profile
+    from limo_tpu_torch.utils import profiling
+    _, make_step, frames, st0 = _bench_scan_drive(cuda)
+    n = _drive_to_solves(make_step(), frames, st0, 1).stats.frames
+    step, st = make_step(), st0
+    for fr in frames[:n - 2]:
+        st, _ = step(st, fr)
+    torch.cuda.synchronize()
+    rec = profiling.SpanRecorder()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        # the frame before, unrecorded: the profiler's first ranges pay
+        # its own set-up
+        st, _ = step(st, frames[n - 2])
+        torch.cuda.synchronize()
+        t0 = time.time_ns()
+        rec.start()
+        try:
+            step(st, frames[n - 1])
+        finally:
+            rec.stop()
+        torch.cuda.synchronize()
+    assert len(step.stats.solves) == 1
+    events = sorted(((e.name(), e.start_ns(), e.end_ns())
+                     for e in prof.profiler.kineto_results.events()
+                     if e.name().startswith("limo.") and e.start_ns() > t0
+                     and e.device_type() == DeviceType.CPU),
+                    key=lambda e: e[1])
+    spans = sorted(rec.snapshot(), key=lambda s: s.start_ns)
+    assert [e[0] for e in events] == [s.name for s in spans], (
+        Counter(e[0] for e in events), Counter(s.name for s in spans))
+    gaps = sorted((max(abs(s.start_ns - e[1]), abs(s.end_ns - e[2])),
+                   s.start_ns - e[1], s.end_ns - e[2], s.name)
+                  for s, e in zip(spans, events))
+    msg = (f"{len(spans)} spans, gap to the profiler's events (us): median "
+           f"{gaps[len(gaps) // 2][0] / 1e3:.1f}, max {gaps[-1][0] / 1e3:.1f}"
+           f"; the widest (gap, start, end ns, name): {gaps[-5:]}")
+    print(msg)
+    assert gaps[-1][0] < 50_000, msg
 
 
 def _projected_drive(n_kf=4, n_lm=60, seed=0):

@@ -1,16 +1,23 @@
 """Parity of the port's host utilities with the reference package's:
 ``utils/transforms.py``, ``utils/viz.py``, ``utils/checkpoint.py`` (a
 checkpoint written by either package loads in the other) and
-``utils/profiling.py``'s ``StageTimer`` and ``device_trace``.
+``utils/profiling.py``'s ``device_trace``; and the port's span recorder
+(``utils/profiling.py``: spans, self times, host reads), alone and over a
+scan drive with solves.
 
 They are numpy code on both sides, so every comparison is exact unless it
 says otherwise."""
 
+import contextlib
 import json
+import re
+import time
+from collections import defaultdict
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from limo_tpu.config import LimoConfig
 from limo_tpu.utils import checkpoint as jckpt
@@ -195,15 +202,206 @@ def test_dump_map_matches_reference(adjusters, tmp_path):
 # profiling
 # ---------------------------------------------------------------------------
 
-def test_stage_timer():
-    t = tprof.StageTimer()
-    for name in ("a", "a", "b"):
-        with t.stage(name):
-            pass
-    assert t.counts == {"a": 2, "b": 1}
-    assert "a:" in t.report() and "n=2" in t.report()
-    t.reset()
-    assert not t.totals and not t.counts
+@contextlib.contextmanager
+def recording(capacity=1 << 20):
+    rec = tprof.SpanRecorder(capacity)
+    rec.start()
+    try:
+        yield rec
+    finally:
+        rec.stop()
+
+
+@tprof.traced("limo.test_leaf")
+def leaf():
+    time.sleep(1e-4)
+
+
+def frame_work(frame):
+    """A frame's spans: top (frame id set) > two mids > leaves."""
+    with tprof.span("limo.test_top", frame=frame):
+        for _ in range(2):
+            with tprof.span("limo.test_mid"):
+                leaf()
+                leaf()
+                time.sleep(1e-4)
+
+
+def test_span_nesting_and_self_times():
+    with recording() as rec:
+        frame_work(0)
+    spans = rec.snapshot()
+    assert [s.name for s in spans] == ["limo.test_top"] + [
+        "limo.test_mid", "limo.test_leaf", "limo.test_leaf"] * 2
+    own = tprof.self_ns(spans)
+    top = spans[0]
+    assert sum(own) == top.end_ns - top.start_ns
+    for s, o in zip(spans, own):
+        assert s.start_ns <= s.end_ns and 0 <= o <= s.end_ns - s.start_ns
+        if s.parent >= 0:
+            p = spans[s.parent]
+            assert p.start_ns <= s.start_ns <= s.end_ns <= p.end_ns
+    # a leaf has no children; a mid's self time is its own sleep
+    assert own[2] == spans[2].end_ns - spans[2].start_ns
+    assert own[1] >= 100_000
+
+
+def test_span_parent_and_frame_ids():
+    leaf()                                  # outside any frame, unrecorded
+    with recording() as rec:
+        leaf()
+        frame_work(7)
+        frame_work(8)
+    spans = rec.snapshot()
+    assert spans[0].name == "limo.test_leaf"
+    assert (spans[0].parent, spans[0].frame) == (-1, -1)
+    tops = [i for i, s in enumerate(spans) if s.name == "limo.test_top"]
+    assert [spans[i].frame for i in tops] == [7, 8]
+    for i, s in enumerate(spans[1:], 1):
+        if s.name == "limo.test_mid":
+            assert spans[s.parent].name == "limo.test_top"
+        if s.name == "limo.test_leaf":
+            assert spans[s.parent].name == "limo.test_mid"
+        # each span's top ancestor holds the frame it inherits
+        j = i
+        while spans[j].parent >= 0:
+            j = spans[j].parent
+        assert j in tops and spans[j].frame == s.frame
+
+
+def test_recorder_drops_past_capacity():
+    with recording(capacity=4) as rec:
+        frame_work(0)
+        frame_work(1)
+    spans = rec.snapshot()
+    assert len(spans) == 4 and rec.dropped == 2 * 7 - 4
+    assert [s.parent for s in spans] == [-1, 0, 1, 1]
+    assert all(s.end_ns >= s.start_ns >= 0 for s in spans)
+    assert "dropped 10 spans past 4" in rec.report()
+
+
+def test_recorder_start_stop():
+    rec, other = tprof.SpanRecorder(), tprof.SpanRecorder()
+    with pytest.raises(RuntimeError):
+        rec.stop()
+    rec.start()
+    try:
+        with pytest.raises(RuntimeError):
+            other.start()
+        assert tprof.host_read(torch.ones((), dtype=torch.bool)) is True
+    finally:
+        rec.stop()
+    assert tprof.host_read(torch.zeros((), dtype=torch.bool)) is False
+    leaf()
+    assert [s.name for s in rec.snapshot()] == ["limo.sync"]
+
+
+def test_recorder_off_opens_no_profiler_range(monkeypatch):
+    """With no recorder and no profiler, a span opens no profiler range
+    and nothing is kept; under a profiler the limo.* ranges are in its
+    trace, the recorder off."""
+    from torch.profiler import ProfilerActivity, profile
+    opened = []
+    real = tprof._range
+
+    def counting(name, *a):
+        opened.append(name)
+        return real(name, *a)
+
+    monkeypatch.setattr(tprof, "_range", counting)
+    frame_work(0)
+    tprof.host_read(torch.ones((), dtype=torch.bool))
+    assert opened == []
+    assert tprof.span("limo.test_top") is tprof.span("limo.test_mid")
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        frame_work(0)
+        tprof.host_read(torch.ones((), dtype=torch.bool))
+    assert opened == ["limo.test_top"] + ["limo.test_mid", "limo.test_leaf",
+                                          "limo.test_leaf"] * 2 + ["limo.sync"]
+    names = [e.name() for e in prof.profiler.kineto_results.events()]
+    for name in ("limo.test_top", "limo.test_mid", "limo.test_leaf",
+                 "limo.sync"):
+        assert name in names
+
+
+def test_span_times_on_the_profiler_clock():
+    """A span recorded under the profiler starts and ends within 50 us of
+    the profiler's own event for it (past the process's first ranges, which
+    pay the profiler's own set-up: up to ~1 ms on this CPU)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        frame_work(-1)
+        t0 = time.time_ns()
+        with recording() as rec:
+            for i in range(3):
+                frame_work(i)
+    events = sorted(((e.name(), e.start_ns(), e.end_ns())
+                     for e in prof.profiler.kineto_results.events()
+                     if e.name().startswith("limo.test_")
+                     and e.start_ns() > t0),
+                    key=lambda e: e[1])
+    spans = sorted(rec.snapshot(), key=lambda s: s.start_ns)
+    assert [e[0] for e in events] == [s.name for s in spans]
+    gaps = [max(abs(s.start_ns - e[1]), abs(s.end_ns - e[2]))
+            for s, e in zip(spans, events)]
+    assert max(gaps) < 50_000, gaps
+
+
+def test_recorder_report():
+    with recording() as rec:
+        frame_work(0)
+    lines = rec.report().splitlines()
+    assert [ln.split(":")[0] for ln in lines] == [
+        "limo.test_top", "limo.test_mid", "limo.test_leaf"]
+    top, mid, lf = (re.match(
+        r".*: n=(\d+), total ([\d.]+) ms, self ([\d.]+) ms, mean ([\d.]+) ms$",
+        ln).groups() for ln in lines)
+    assert (top[0], mid[0], lf[0]) == ("1", "2", "4")
+    assert float(lf[1]) == float(lf[2]) >= 0.4
+    assert float(mid[1]) == pytest.approx(2 * float(mid[3]), abs=2e-3)
+    assert float(top[1]) == pytest.approx(
+        float(top[2]) + float(mid[2]) + float(lf[2]), abs=2e-3)
+
+
+def test_scan_drive_spans_and_host_reads():
+    """The port's scan step over a CPU drive with two solves, recorded: one
+    limo.sync span per counted host read (ScanStats.host_syncs), every span
+    inside its frame's limo.scan_step, and each frame's self times summing
+    to that span's duration."""
+    import torch_parity as tp
+    from limo_tpu_torch.pipeline import scan_odometry as tso
+    F = 10
+    chans, rig, cfg, _ = tp.scan_drive("depth", F)
+    trig, tcfg = tp.port_of(rig, cfg)
+    xs = tso.frame_arrays(chans["stamps"], chans["uvd_seq"],
+                          chans["valid_seq"], tcfg, torch.float64,
+                          stamp_dtype=torch.float64, device="cpu")
+    st = tso.init_state(tcfg.capacity, torch.float64,
+                        tcfg.prior.default_speed, "cpu")
+    step = tso.make_scan_step(trig, tcfg)
+    with recording() as rec:
+        for i in range(F):
+            st, _ = step(st, tuple(x[i] for x in xs))
+    spans = rec.snapshot()
+    names = {s.name for s in spans}
+    assert len(step.stats.solves) >= 2 and rec.dropped == 0
+    assert {"limo.solve_trimmed", "limo.trim", "limo.sync",
+            "limo.selection"} <= names
+    assert sum(s.name == "limo.sync" for s in spans) \
+        == step.stats.host_syncs \
+        == F + sum(i.n_host_syncs for i in step.stats.solves)
+    assert sum(s.name == "limo.solve_trimmed" for s in spans) \
+        == len(step.stats.solves)
+    tops = {s.frame: s for s in spans if s.name == "limo.scan_step"}
+    assert sorted(tops) == list(range(F))
+    own = defaultdict(int)
+    for s, o in zip(spans, tprof.self_ns(spans)):
+        top = tops[s.frame]
+        assert top.start_ns <= s.start_ns <= s.end_ns <= top.end_ns
+        assert (s.parent == -1) == (s is top)
+        own[s.frame] += o
+    for f, top in tops.items():
+        assert own[f] == top.end_ns - top.start_ns
 
 
 def test_device_trace(tmp_path):
