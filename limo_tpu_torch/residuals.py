@@ -7,8 +7,10 @@ batched over leading axes, and return ``(residual, valid)`` where
 as a mask (invalid residuals are zeroed by the caller, keeping shapes static).
 
 Jacobians are taken w.r.t. *local tangents* (pose ⊞ in
-:mod:`limo_tpu_torch.geometry.pose`) with ``torch.func``, matching the
-reference's local parameterizations.
+:mod:`limo_tpu_torch.geometry.pose`), matching the reference's local
+parameterizations: in closed form (:mod:`limo_tpu_torch.solver.analytic`)
+by the window's assembly, and with ``torch.func`` by the motion-only solve
+and the observation blocks of the reference's non-kernel route.
 """
 
 from __future__ import annotations

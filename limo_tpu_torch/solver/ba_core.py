@@ -16,9 +16,10 @@ its non-kernel route (:func:`assembly_plan`: the kernels turned off,
 rotation-compensated residuals, a float64 window on a card), they come from
 its ``_obs_system`` instead: ``vmap(jacfwd)`` over the flattened
 observation grid and five full-f32 contractions. Groundplane and regularizer
-Jacobians come from ``torch.func`` (forward/reverse mode) w.r.t. the local
-tangents (the ``boxplus`` retractions of
-:mod:`limo_tpu_torch.geometry.pose`). The reduced (pose+plane) system is
+Jacobians are closed forms (:mod:`limo_tpu_torch.solver.analytic`) w.r.t.
+the local tangents (the ``boxplus`` retractions of
+:mod:`limo_tpu_torch.geometry.pose` and :func:`plane_boxplus`), batched over
+the landmarks and the keyframe pairs. The reduced (pose+plane) system is
 dense (P = 10K ≈ 200 — the same size Ceres dense-solves after Schur
 elimination); landmark blocks are eliminated with batched 3×3 inverses.
 
@@ -41,7 +42,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
-from torch.func import jacfwd, jacrev, vmap
+from torch.func import jacfwd, vmap
 
 from .. import residuals as res_k
 from ..geometry import pose as pose_ops
@@ -51,7 +52,7 @@ from ..state import Selection, Window
 from ..utils.collectives import all_reduce_sum
 from ..utils.precision import full_f32
 from ..utils.profiling import traced
-from . import cuda_assemble
+from . import analytic, cuda_assemble
 
 PD = 10  # per-keyframe parameter dims: 6 pose tangent + 4 plane tangent
 
@@ -322,33 +323,25 @@ def _obs_cost(window: Window, sel: Selection, rig, cfg,
     return cuda_assemble.cost_obs(*ops, **sizes)
 
 
-def _gp_residual(pose_tangent, plane_tangent, lm_delta, pose, plane, lm):
-    """Groundplane height residual for one landmark vs its attached keyframe."""
-    p = pose_ops.boxplus(pose, pose_tangent)
-    pl = plane_boxplus(plane, plane_tangent)
-    r, _ = res_k.groundplane_height(p, pl[..., :3], pl[..., 3], lm + lm_delta)
-    return r
-
-
 @traced("limo.gp_system")
 def _gp_system(window: Window, sel: Selection, cfg, with_jacobians: bool):
-    """Groundplane height residuals per landmark vs the attached keyframe.
+    """Groundplane height residuals per landmark vs the attached keyframe,
+    with their closed-form Jacobians
+    (:func:`~limo_tpu_torch.solver.analytic.groundplane_height_jac`).
 
     Returns (r_gp [L], w_gp [L], gp_on [L], cost, Jgp_kp [L,10]|None,
     Jgp_lm [L,3]|None)."""
-    L = window.L
-    kw = dict(dtype=window.poses.dtype, device=window.poses.device)
+    K = window.K
     reg_cfg = cfg.regularization
     gp_kf = sel.gp_kf.long()
     lm_active = window.lm_valid & sel.lm_selected
     gp_on = lm_active & window.lm_is_gp & (sel.gp_weight > 0) \
         & window.kf_valid[gp_kf]
-    gp_poses = window.poses[gp_kf]
-    gp_planes = window.planes[gp_kf]
-    z6 = torch.zeros((L, 6), **kw)
-    z4 = torch.zeros((L, 4), **kw)
-    z3 = torch.zeros((L, 3), **kw)
-    r_gp = _gp_residual(z6, z4, z3, gp_poses, gp_planes, window.lm_pos)[:, 0]
+    # each landmark's keyframe (R, t) and plane, gathered in one index
+    kf = torch.cat([analytic.rotations(window.poses).reshape(K, 9),
+                    window.poses[:, 4:], window.planes], -1)[gp_kf]
+    r_gp, J_pose, J_plane, Jgp_lm = analytic.groundplane_height_jac(
+        kf[:, :9].reshape(-1, 3, 3), kf[:, 9:12], kf[:, 12:], window.lm_pos)
     s_gp = r_gp ** 2
     w_gp = torch.where(gp_on, sel.gp_weight * huber_weight(
         s_gp, reg_cfg.gp_height_huber_delta), torch.zeros_like(s_gp))
@@ -359,10 +352,7 @@ def _gp_system(window: Window, sel: Selection, cfg, with_jacobians: bool):
     cost = 0.5 * torch.sum(torch.where(gp_on, sel.gp_weight * rho,
                                        torch.zeros_like(rho)))
     if with_jacobians:
-        Jgp = vmap(jacfwd(_gp_residual, argnums=(0, 1, 2)))(
-            z6, z4, z3, gp_poses, gp_planes, window.lm_pos)
-        Jgp_pose, Jgp_plane, Jgp_lm = (j[:, 0, :] for j in Jgp)
-        Jgp_kp = torch.cat([Jgp_pose, Jgp_plane], -1)
+        Jgp_kp = torch.cat([J_pose, J_plane], -1)
     else:
         Jgp_kp = Jgp_lm = None
     return r_gp, w_gp, gp_on, cost, Jgp_kp, Jgp_lm
@@ -548,6 +538,10 @@ def _regularizer_system(window: Window, sel: Selection, cfg, speed_reg=None,
                                      keyframe ``speed_reg[0]`` (weight
                                      ``speed_reg[4]``)
     Under ``pose_only`` every family but the speed one has weight 0.
+
+    The Jacobian is in closed form (:mod:`.analytic`): each row depends on
+    the tangents of at most two keyframes, and their blocks enter the dense
+    J through the one-hot pickers, so a pair on one slot sums both.
     """
     K = window.K
     P = K * PD
@@ -583,33 +577,36 @@ def _regularizer_system(window: Window, sel: Selection, cfg, speed_reg=None,
         oh_sp = _one_hot(kf_i, K, dtype)         # [K]
 
     def pick(oh, x):
-        return oh @ x
+        """Rows of the per-keyframe ``x`` [K,...] that ``oh`` [...,K]
+        picks (exact: one-hot products)."""
+        return (oh @ x.reshape(K, -1)).reshape(oh.shape[:-1] + x.shape[1:])
 
-    def all_res(delta):
-        poses = pose_ops.boxplus(window.poses, delta[:, :6])
-        planes = plane_boxplus(window.planes, delta[:, 6:])
-        poses_a, poses_b = pick(oh_a, poses), pick(oh_b, poses)
-        planes_a, planes_b = pick(oh_a, planes), pick(oh_b, planes)
-        r_scale, _ = res_k.pose_scale(pick(oh_s1, poses), pick(oh_s0, poses),
-                                      sel.scale_target)
-        r_ndiff, _ = res_k.vector_difference(planes_a[:, :3], planes_b[:, :3])
-        r_ddiff = planes_a[:, 3] - planes_b[:, 3]
-        r_motion, _ = res_k.groundplane_motion(poses_a, poses_b,
-                                               planes_a[:, :3])
-        r_prior = planes[:, :3] - prior
-        parts = [r_scale, r_ndiff.reshape(-1), r_ddiff, r_motion.reshape(-1),
-                 r_prior.reshape(-1)]
-        if speed_reg is not None:
-            r_speed, _ = res_k.speed_vector(pick(oh_sp, poses),
-                                            pose_origin_before, vel_before,
-                                            dt)
-            parts.append(r_speed)
-        return torch.cat(parts)
-
-    delta0 = torch.zeros((K * PD,), **kw)
-    r = all_res(delta0.reshape(K, PD))
-    J = (jacrev(lambda d: all_res(d.reshape(K, PD)))(delta0)
-         if with_jacobian else None)
+    # per keyframe: the pose as (R, t), the plane's unit normal n̂ and its
+    # retraction Jacobian dn (plane_boxplus at δ = 0)
+    R = analytic.rotations(window.poses)
+    t = window.poses[:, 4:]
+    nh, dn = analytic.plane_normal_jac(window.planes[:, :3])
+    d = window.planes[:, 3]
+    # u = translation(T_1 ∘ T_0⁻¹) of the K-1 chain pairs (1, 0) = (a, b),
+    # then of the scale pair (kf1, kf0)
+    oh_1 = torch.cat([oh_a, oh_s1[None]])
+    oh_0 = torch.cat([oh_b, oh_s0[None]])
+    t_0 = pick(oh_0, t)
+    u, c, R_rel = analytic.relative_translation(pick(oh_1, R), pick(oh_1, t),
+                                                pick(oh_0, R), t_0)
+    u_norm = res_k._safe_norm(u)                  # 0 where ‖u‖² ≤ 1e-20
+    unit = u / torch.clamp_min(u_norm, 1e-12)[:, None]
+    nh_a, nh_b = pick(oh_a, nh), pick(oh_b, nh)
+    r_motion = torch.sum(nh_a * unit[:-1], -1)
+    parts = [u_norm[-1:] - sel.scale_target, (nh_a - nh_b).reshape(-1),
+             pick(oh_a, d) - pick(oh_b, d), r_motion,
+             (nh - prior).reshape(-1)]
+    if speed_reg is not None:
+        r_speed, J_speed = analytic.speed_vector_jac(
+            pick(oh_sp, R), pick(oh_sp, t), pose_origin_before[4:],
+            vel_before, dt)
+        parts.append(r_speed)
+    r = torch.cat(parts)
 
     # weights per residual row
     w = [sel.scale_weight.reshape(1).to(dtype),
@@ -625,4 +622,38 @@ def _regularizer_system(window: Window, sel: Selection, cfg, speed_reg=None,
         n_speed = 3 if speed_reg is not None else 0
         w = w * torch.cat([torch.zeros((w.shape[0] - n_speed,), **kw),
                            torch.ones((n_speed,), **kw)])
-    return r, w, (J.reshape(r.shape[0], P) if with_jacobian else None)
+    if not with_jacobian:
+        return r, w, None
+
+    def place(oh, blocks):
+        """Blocks [...,n,PD] at the keyframe ``oh`` [...,K] picks, as rows
+        [...,n,P] of the dense Jacobian (exact: one-hot products)."""
+        return (oh[..., None, :, None] * blocks[..., :, None, :]).reshape(
+            blocks.shape[:-1] + (P,))
+
+    pad = torch.nn.functional.pad
+    # ∂r/∂u of the scalar residuals of u: n̂_a·u/‖u‖ (motion) and ‖u‖
+    # (scale). Where ‖u‖ is guarded to 0, autodiff of the forward pass
+    # gives I/1e-12 for ∂(u/‖u‖)/∂u (the clamp) and 0 for ∂‖u‖/∂u.
+    scale_ok = (u_norm[-1:] > 0).to(dtype)[:, None]
+    v = torch.cat([(nh_a - unit[:-1] * r_motion[:, None])
+                   / torch.clamp_min(u_norm[:-1], 1e-12)[:, None],
+                   unit[-1:] * scale_ok])
+    J_1, J_0 = analytic.relative_translation_vjp(v, c, R_rel, t_0)
+    # chain pair i: its normal (3), distance (1) and motion (1) rows at
+    # keyframes a and b; the plane tangent is columns 6-8 (δn) and 9 (δd)
+    e_d = torch.eye(PD, **kw)[PD - 1].expand(K - 1, 1, PD)
+    dn_a, dn_b = pick(oh_a, dn), pick(oh_b, dn)
+    motion_a = torch.cat([J_1[:-1], (dn_a @ unit[:-1, :, None])[..., 0]], -1)
+    blocks_a = torch.cat([pad(dn_a, (6, 1)), e_d,
+                          pad(motion_a, (0, 1))[:, None]], 1)
+    blocks_b = torch.cat([pad(-dn_b, (6, 1)), -e_d,
+                          pad(J_0[:-1], (0, 4))[:, None]], 1)
+    J_pair = place(oh_a, blocks_a) + place(oh_b, blocks_b)   # [K-1,5,P]
+    rows = [place(oh_s1, pad(J_1[-1:], (0, 4)))
+            + place(oh_s0, pad(J_0[-1:], (0, 4))),
+            J_pair[:, :3].reshape(-1, P), J_pair[:, 3], J_pair[:, 4],
+            place(torch.eye(K, **kw), pad(dn, (6, 1))).reshape(-1, P)]
+    if speed_reg is not None:
+        rows.append(place(oh_sp, pad(J_speed, (0, 4))))
+    return r, w, torch.cat(rows)

@@ -469,6 +469,86 @@ def test_span_times_on_the_profilers_clock_on_card(cuda):
     assert gaps[-1][0] < 50_000, msg
 
 
+def _solve_window(cuda, monkeypatch, n):
+    """(window, sel, rig, cfg) of ``scan.drive``'s n-th trimmed solve, as
+    the scan step hands them to ``solve_trimmed``."""
+    so, make_step, frames, st0 = _bench_scan_drive(cuda)
+    seen, inner = [], so.solve_trimmed
+
+    def capture(w, sel, rig, cfg, *args, **kwargs):
+        seen.append((w, sel, rig, cfg))
+        return inner(w, sel, rig, cfg, *args, **kwargs)
+
+    monkeypatch.setattr(so, "solve_trimmed", capture)
+    _drive_to_solves(make_step(), frames, st0, n)
+    return seen[-1]
+
+
+@pytest.mark.gpu
+def test_closed_form_blocks_on_card(cuda, monkeypatch):
+    """On ``scan.drive``'s fourth solve window (six keyframes), the
+    regularizer and ground plane systems (closed-form Jacobians) in f32 on
+    the card against the same calls in f64 on the CPU: each field within
+    1e-4 of its largest entry, exactly equal where that is 0 (the
+    regularizers' r and J on the rows their weights keep; a padding pair's
+    motion row is 0/0 rounding where its two slots hold one pose). Under the profiler, one ``assemble`` launches fewer than 400
+    device operations inside ``limo.regularizers`` and ``limo.gp_system``
+    (their ``torch.func`` Jacobians launched ~1,700)."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from limo_tpu_torch.state import Selection, Window
+    w, sel, rig, cfg = _solve_window(cuda, monkeypatch, 4)
+
+    def f64(tup, cls):
+        return cls(*[x.cpu().double() if x.is_floating_point() else x.cpu()
+                     for x in tup])
+
+    w64, sel64 = f64(w, Window), f64(sel, Selection)
+    outs = {}
+    for name, (a, b) in {
+            "regularizers": (t_ba._regularizer_system(w, sel, cfg),
+                             t_ba._regularizer_system(w64, sel64, cfg)),
+            "gp_system": (t_ba._gp_system(w, sel, cfg, True),
+                          t_ba._gp_system(w64, sel64, cfg, True))}.items():
+        outs[name] = [(x.double().cpu(), y) for x, y in zip(a, b)]
+    (r, r64), (wr, wr64), (J, J64) = outs["regularizers"]
+    kept = wr64 > 0
+    assert torch.equal(wr > 0, kept) and int(kept.sum()) > 0
+    fields = {"r": (r[kept], r64[kept]), "w": (wr, wr64),
+              "J": (J[kept], J64[kept])}
+    gp = outs["gp_system"]
+    assert torch.equal(gp[2][0], gp[2][1])                 # gp_on
+    fields.update({k: gp[i] for k, i in (("r_gp", 0), ("w_gp", 1),
+                                         ("Jgp_kp", 4), ("Jgp_lm", 5))})
+    errs = {k: (float((a - b).abs().max()), float(b.abs().max()))
+            for k, (a, b) in fields.items()}
+    print("max error, largest entry:", errs)
+    assert all(e <= 1e-4 * m for e, m in errs.values()), errs
+
+    t_ba.assemble(w, sel, rig, cfg)                        # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t_ba.assemble(w, sel, rig, cfg)
+        torch.cuda.synchronize()
+    ranges, host_start, launched = [], {}, []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            if not e.name().startswith("limo."):
+                launched.append(e.linked_correlation_id())
+            continue
+        if e.name() in ("limo.regularizers", "limo.gp_system"):
+            ranges.append((e.start_ns(), e.end_ns()))
+        if e.correlation_id() > 0:
+            host_start[e.correlation_id()] = e.start_ns()
+    at = np.array([host_start[c] for c in launched if c in host_start])
+    inside = sum(int(((at >= a) & (at <= b)).sum()) for a, b in ranges)
+    msg = (f"{len(ranges)} ranges, {inside} of {len(launched)} device "
+           "operations of one assemble launched inside them")
+    print(msg)
+    assert len(ranges) == 2 and 0 < inside < 400, msg
+
+
 def _projected_drive(n_kf=4, n_lm=60, seed=0):
     """test_window_manager.py's drive: keyframes 1.2 m apart along z and
     landmarks ahead, as tracklets of their exact projections and depths
