@@ -52,9 +52,11 @@ class LidarDepthConfig:
     local_thres_rel: float = 0.5      # treshold_depth_local_value (relative)
     crossnorm_thres: float = 0.1      # triangleplanar_crossnorm_treshold
     viewray_ortho_thres: float = 0.1  # viewray_plane_orthoganality_treshold
-    max_neighbors: int = 24           # static cap (rect holds ~8 KITTI points)
+    max_neighbors: int = 24           # static cap on the rect's points
     grid_cell_px: int = 8             # bucket grid cell size
-    points_per_cell: int = 16         # static per-cell cap
+    points_per_cell: int = 16         # static per-cell cap (the returns
+                                      # past it are dropped; see
+                                      # gather_neighbors' overflow)
     # neighbour selection (neighbor_search_mode: 0 rect / 1 radius)
     neighbor_mode: str = "rect"       # "rect" | "radius"
     radius_px: float = 10.0           # radiusSearch_radius (px, radius mode)
@@ -78,6 +80,7 @@ class DepthResult(NamedTuple):
     depth: torch.Tensor        # [F] estimated depth, -1 invalid
     valid: torch.Tensor        # [F] bool
     n_neighbors: torch.Tensor  # [F] int
+    overflow: torch.Tensor     # [F] int64, gather_neighbors' overflow
 
 
 def _triples(k: int, device) -> torch.Tensor:
@@ -128,7 +131,9 @@ def gather_neighbors(cloud_cam, cloud_valid, uv_feat, focal, principal,
     slots gathered from the cells around each feature's cell, then the K
     nearest (pixel distance) kept.
 
-    Returns (pts [F,K,3], uvs [F,K,2], mask [F,K]).
+    Returns (pts [F,K,3], uvs [F,K,2], mask [F,K], overflow [F] int64):
+    the overflow is the returns the feature's cells hold past
+    ``points_per_cell``, which its search never saw.
     """
     W, H = image_size
     cell = cfg.grid_cell_px
@@ -194,7 +199,7 @@ def gather_neighbors(cloud_cam, cloud_valid, uv_feat, focal, principal,
     mask = torch.gather(ok, 1, top)
     pts = torch.gather(cand_pts, 1, top[..., None].expand(-1, -1, 3))
     uvs = torch.gather(cand_uv, 1, top[..., None].expand(-1, -1, 2))
-    return pts, uvs, mask
+    return pts, uvs, mask, torch.clamp_min(ncount - PC, 0).sum(-1)
 
 
 def _histogram_segment(depths, mask, cfg: LidarDepthConfig):
@@ -368,12 +373,13 @@ def estimate_depths(cloud_cam, cloud_valid, uv_feat, focal, principal,
                     ) -> DepthResult:
     """The per-feature depth pipeline (steps 1-6 above).
 
-    cloud_cam [P,3] camera frame, uv_feat [F,2]. Returns depth -1 where
-    there is no valid estimate (the reference's FeaturePoint d = -1).
+    cloud_cam [P,3] camera frame, uv_feat [F,2]. Returns a
+    :class:`DepthResult`, depth -1 where there is no valid estimate (the
+    reference's FeaturePoint d = -1).
     """
     dtype = cloud_cam.dtype
-    pts, uvs, mask = gather_neighbors(cloud_cam, cloud_valid, uv_feat, focal,
-                                      principal, image_size, cfg)
+    pts, uvs, mask, over = gather_neighbors(cloud_cam, cloud_valid, uv_feat,
+                                            focal, principal, image_size, cfg)
     n_neigh = mask.sum(-1)
     enough = n_neigh >= cfg.min_neighbors
 
@@ -414,7 +420,8 @@ def estimate_depths(cloud_cam, cloud_valid, uv_feat, focal, principal,
 
     valid = enough & seg_ok & glob_ok & local_ok & (seg_n >= 1)
     depth = torch.where(valid, depth, torch.full_like(depth, -1.0))
-    return DepthResult(depth=depth, valid=valid, n_neighbors=n_neigh)
+    return DepthResult(depth=depth, valid=valid, n_neighbors=n_neigh,
+                       overflow=over)
 
 
 @full_f32
@@ -432,8 +439,8 @@ def ground_patch_depths(cloud_cam, gp_inlier, uv_feat, plane_normal,
     Returns (depth [F] (-1 invalid), valid [F]).
     """
     dtype = cloud_cam.dtype
-    pts, _, mask = gather_neighbors(cloud_cam, gp_inlier, uv_feat, focal,
-                                    principal, image_size, cfg)
+    pts, _, mask, _ = gather_neighbors(cloud_cam, gp_inlier, uv_feat, focal,
+                                       principal, image_size, cfg)
     d_plane = torch.abs(pts @ plane_normal + plane_dist)
     w = torch.where(mask, 1.0 / (d_plane + 0.05), torch.zeros_like(d_plane))
 

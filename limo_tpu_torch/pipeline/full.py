@@ -30,6 +30,7 @@ from ..geometry import pose as pose_ops
 from ..geometry import quaternion as quat
 from ..geometry.camera import CameraRig
 from ..utils.precision import full_f32
+from ..utils.profiling import span
 from ..utils.transfer import numpy_float, upload
 from .odometry import FrameResult, LidarOdometry
 
@@ -52,25 +53,31 @@ def frontend_depth_plane(cloud_veh, cloud_valid, Tcv7, uv, f, pp,
     """The lidar front end of one frame: vehicle→camera transform, RANSAC
     groundplane, per-feature object depth, and the M-estimator ground-patch
     depth for features without one. Returns (depths [F], plane_veh [4] =
-    (n, d) in the VEHICLE frame, plane_ok); the plane feeds the scan
-    step's groundplane channel."""
+    (n, d) in the VEHICLE frame, plane_ok, overflow); the plane feeds the
+    scan step's groundplane channel, the overflow is the returns the depth
+    search's cells held past ``points_per_cell`` (a sum over the features;
+    the ground patch searches a subset of the same cells)."""
     dtype = cloud_veh.dtype
-    cloud_cam = pose_ops.apply(Tcv7, cloud_veh)
-    d = estimate_depths(cloud_cam, cloud_valid, uv, f, pp, image_size,
-                        lidar_cfg).depth
+    with span("limo.lidar_depth"):
+        cloud_cam = pose_ops.apply(Tcv7, cloud_veh)
+        dres = estimate_depths(cloud_cam, cloud_valid, uv, f, pp, image_size,
+                               lidar_cfg)
+        d = dres.depth
     plane = (torch.arange(4, device=d.device) == 2).to(dtype)
     plane_ok = torch.zeros((), dtype=torch.bool, device=d.device)
     if use_gp:
-        gp = estimate_groundplane(cloud_veh, cloud_valid, z_band=gp_band)
-        # plane vehicle→cam: n_cam = R n_veh; d_cam = d_veh − n_cam·t
-        n_cam = quat.qrot(Tcv7[:4], gp.normal)
-        d_cam = gp.distance - n_cam @ Tcv7[4:]
-        gpd, gok = ground_patch_depths(cloud_cam, gp.inliers, uv, n_cam,
-                                       d_cam, f, pp, image_size, lidar_cfg)
-        d = torch.where(gp.ok & gok & (d < 0), gpd, d)
-        plane = torch.cat([gp.normal, gp.distance[None]])
-        plane_ok = gp.ok
-    return d, plane, plane_ok
+        with span("limo.groundplane"):
+            gp = estimate_groundplane(cloud_veh, cloud_valid, z_band=gp_band)
+            # plane vehicle→cam: n_cam = R n_veh; d_cam = d_veh − n_cam·t
+            n_cam = quat.qrot(Tcv7[:4], gp.normal)
+            d_cam = gp.distance - n_cam @ Tcv7[4:]
+            gpd, gok = ground_patch_depths(cloud_cam, gp.inliers, uv, n_cam,
+                                           d_cam, f, pp, image_size,
+                                           lidar_cfg)
+            d = torch.where(gp.ok & gok & (d < 0), gpd, d)
+            plane = torch.cat([gp.normal, gp.distance[None]])
+            plane_ok = gp.ok
+    return d, plane, plane_ok, dres.overflow.sum()
 
 
 @dataclass(frozen=True)
@@ -90,9 +97,8 @@ def _frontend_depth(cloud_veh, cloud_valid, Tcv7, uv, f, pp, image_size,
                     lidar_cfg, use_gp, gp_band):
     """The per-feature depths of :func:`frontend_depth_plane` alone (the
     host-driven pipeline's depth hook)."""
-    d, _, _ = frontend_depth_plane(cloud_veh, cloud_valid, Tcv7, uv, f, pp,
-                                   image_size, lidar_cfg, use_gp, gp_band)
-    return d
+    return frontend_depth_plane(cloud_veh, cloud_valid, Tcv7, uv, f, pp,
+                                image_size, lidar_cfg, use_gp, gp_band)[0]
 
 
 class LimoPipeline:

@@ -24,11 +24,15 @@ Per chunk of frames, three passes (:func:`make_fused_runner`):
 
 The host loop (:func:`run_fused`) chunks frames so upload buffers stay
 bounded; the final partial chunk is padded by replaying the last frame
-(padded outputs are dropped; the state is not reused afterwards).
+(padded outputs are dropped; the state is not reused afterwards). Each
+chunk's inputs go up under ``limo.upload`` (:func:`upload`). The runner's
+``front_stats`` (:class:`FrontStats`) counts what the front end saw and
+dropped, on the device, for one read after the frames.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -74,6 +78,39 @@ class FusedOut(NamedTuple):
     n_rate: torch.Tensor         # int32 — depth-carrying persisting slots
     po_ok: torch.Tensor          # bool
     n_usable: torch.Tensor       # int32
+
+
+@dataclass
+class FrontStats:
+    """Counts of the fused front end over the frames it ran. The device
+    counts add up on the card (no host read per frame); :meth:`read` reads
+    them once.
+
+    - ``cloud_overflow`` (host): returns past ``cloud_capacity`` that
+      :func:`pad_clouds` dropped;
+    - on the device, summed over the frames: ``cell_overflow``, the
+      returns each feature's search cells held past ``points_per_cell``
+      (``lidar_depth.gather_neighbors``); ``detected``, valid features;
+      ``with_depth``, valid features with a lidar depth; ``plane_ok``,
+      frames whose RANSAC ground plane held.
+    """
+
+    frames: int = 0
+    cloud_overflow: int = 0
+    counts: Optional[torch.Tensor] = None   # int64 [4], the device counts
+
+    DEVICE = ("cell_overflow", "detected", "with_depth", "plane_ok")
+
+    def add(self, *counts):
+        c = torch.stack([x.to(torch.int64).reshape(()) for x in counts])
+        self.counts = c if self.counts is None else self.counts + c
+
+    def read(self) -> dict:
+        """Every count, the device ones read back in one copy."""
+        dev = ([0] * len(self.DEVICE) if self.counts is None
+               else self.counts.tolist())
+        return {"frames": self.frames, "cloud_overflow": self.cloud_overflow,
+                **dict(zip(self.DEVICE, dev))}
 
 
 def init_fused_state(cfg: LimoConfig, pcfg: LimoPipelineConfig,
@@ -241,13 +278,16 @@ def make_fused_runner(rig, cfg: LimoConfig, pcfg: LimoPipelineConfig,
     (``runner.front_end(xs)``: gamma + batched detect + labels, then the
     lidar front end frame by frame) and then ``runner.step``
     (:func:`make_fused_step`) frame by frame. ``runner.stats`` counts the
-    scan step's frames, host reads and solves."""
+    scan step's frames, host reads and solves; ``runner.front_stats``
+    (:class:`FrontStats`) the front end's features, depths, planes and
+    dropped returns."""
     tcfg = pcfg.tracker
     lcfg = pcfg.lidar
     inv_gamma = 1.0 / pcfg.gamma
     step = make_fused_step(rig, cfg, pcfg)
     out_tab = torch.as_tensor(sorted(outlier_labels), dtype=torch.int32,
                               device=rig.focal.device)
+    front_stats = FrontStats()
 
     @full_f32
     def front_end(xs, dtype):
@@ -275,7 +315,11 @@ def make_fused_runner(rig, cfg: LimoConfig, pcfg: LimoPipelineConfig,
                     clouds[i], cloud_valid[i], tcv, feats.uv[i], f0, pp0,
                     image_size, lcfg, pcfg.use_groundplane,
                     tuple(pcfg.gp_band)))
-        d_f, planes, planes_ok = (torch.stack(x) for x in zip(*per_frame))
+        d_f, planes, planes_ok, over = (torch.stack(x)
+                                        for x in zip(*per_frame))
+        front_stats.frames += len(stamps)
+        front_stats.add(over.sum(), feats.valid.sum(),
+                        (feats.valid & (d_f > 0)).sum(), planes_ok.sum())
         return (stamps, feats.uv, feats.desc, feats.valid, d_f, lab_f,
                 planes, planes_ok)
 
@@ -290,11 +334,27 @@ def make_fused_runner(rig, cfg: LimoConfig, pcfg: LimoPipelineConfig,
     runner.front_end = front_end
     runner.step = step
     runner.stats = step.stats
+    runner.front_stats = front_stats
     return runner
 
 
-def pad_clouds(clouds, capacity: int, dtype=np.float32):
-    """List of [Ni,3] arrays → ([F,capacity,3], [F,capacity] valid)."""
+def upload(arrays, device, dtypes=None):
+    """A frame's or a chunk's inputs to ``device`` under ``limo.upload``:
+    each array (NumPy or a host tensor; None stays None) as a tensor there,
+    in ``dtypes[i]`` where given. From pinned host tensors the copies run
+    asynchronously on the current stream."""
+    dtypes = dtypes or [None] * len(arrays)
+    with span("limo.upload"):
+        return [None if a is None else torch.as_tensor(a).to(
+            device=device, dtype=dt, non_blocking=True)
+            for a, dt in zip(arrays, dtypes)]
+
+
+def pad_clouds(clouds, capacity: int, dtype=np.float32,
+               stats: Optional[FrontStats] = None):
+    """List of [Ni,3] arrays → ([F,capacity,3], [F,capacity] valid); the
+    returns past ``capacity`` are dropped, and counted in
+    ``stats.cloud_overflow`` where ``stats`` is given."""
     F = len(clouds)
     buf = np.zeros((F, capacity, 3), dtype)
     msk = np.zeros((F, capacity), bool)
@@ -302,16 +362,20 @@ def pad_clouds(clouds, capacity: int, dtype=np.float32):
         n = min(len(c), capacity)
         buf[i, :n] = np.asarray(c, dtype)[:n, :3]
         msk[i, :n] = True
+        if stats is not None:
+            stats.cloud_overflow += len(c) - n
     return buf, msk
 
 
 def chunks(stamps, images_u8, clouds, pcfg: LimoPipelineConfig,
            label_images=None, chunk: Optional[int] = None,
-           dtype=torch.float32, device="cuda"):
+           dtype=torch.float32, device="cuda",
+           stats: Optional[FrontStats] = None):
     """Yield (number of real frames, xs on ``device``) per chunk of
     :func:`run_fused`'s input; the final partial chunk replays its last
     frame up to the chunk size. Clouds are padded to ``cloud_capacity`` in
-    the run's float type and stamps take the window's stamp type."""
+    the run's float type (the returns past it counted in
+    ``stats.cloud_overflow``) and stamps take the window's stamp type."""
     F = len(stamps)
     np_dtype = np.float64 if dtype == torch.float64 else np.float32
     if isinstance(clouds, np.ndarray) and clouds.ndim == 3:
@@ -319,21 +383,21 @@ def chunks(stamps, images_u8, clouds, pcfg: LimoPipelineConfig,
         cloud_msk = np.any(cloud_arr != 0.0, -1)
     else:
         cloud_arr, cloud_msk = pad_clouds(clouds, pcfg.cloud_capacity,
-                                          np_dtype)
+                                          np_dtype, stats)
     stamps = np.asarray(stamps, np_dtype)
     stamp_dtype = torch.float64 if dtype == torch.float64 else torch.float32
     chunk = F if not chunk else min(chunk, F)
-    on = lambda a, dt=None: torch.as_tensor(np.ascontiguousarray(a)).to(
-        device=device, dtype=dt)
     for lo in range(0, F, chunk):
         hi = min(lo + chunk, F)
         idx = np.arange(lo, hi)
         if hi - lo < chunk:               # pad final chunk: replay last frame
             idx = np.concatenate([idx, np.full(chunk - (hi - lo), hi - 1)])
         labels = (None if label_images is None
-                  else on(np.asarray(label_images)[idx]))
-        yield hi - lo, (on(stamps[idx], stamp_dtype), on(images_u8[idx]),
-                        on(cloud_arr[idx]), on(cloud_msk[idx]), labels)
+                  else np.asarray(label_images)[idx])
+        host = [np.ascontiguousarray(a) for a in (
+            stamps[idx], images_u8[idx], cloud_arr[idx], cloud_msk[idx])]
+        yield hi - lo, tuple(upload(host + [labels], device,
+                                    [stamp_dtype, None, None, None, None]))
 
 
 def run_fused(stamps, images_u8, clouds, rig, cfg: LimoConfig,
@@ -363,7 +427,7 @@ def run_fused(stamps, images_u8, clouds, rig, cfg: LimoConfig,
                                                           device)
     outs = []
     for n, xs in chunks(stamps, images_u8, clouds, pcfg, label_images, chunk,
-                        dtype, device):
+                        dtype, device, runner.front_stats):
         st, out = runner(st, xs)
         outs.append(FusedOut(*[x[:n] for x in out]))
     return st, FusedOut(*[torch.cat(f) for f in zip(*outs)])
