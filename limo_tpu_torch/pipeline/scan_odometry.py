@@ -18,7 +18,9 @@ reads ``do_solve`` back to the host once per frame and runs the solve only
 when it is set. :class:`ScanStats` counts those reads beside the solves'
 own (``SolveInfo.n_host_syncs``); each is a ``limo.sync`` span
 (``utils.profiling.host_read``), and each frame a ``limo.scan_step`` span
-that sets the frame id of the spans inside it.
+that sets the frame id of the spans inside it. On a card the motion-only
+refinement replays one captured CUDA graph (``solver/pose_only``);
+``ScanStats.pose_only`` counts its captures, replays and eager calls.
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ from ..geometry.camera import backproject, viewing_ray
 from ..geometry.triangulation import triangulate_batch
 from ..selection.keyframe import select_keyframe
 from ..selection.landmark import norm, take
-from ..solver.pose_only import pose_only_step
+from ..solver.pose_only import PoseOnlyGraphStats, pose_only_step
 from ..solver.trimmed import solve_trimmed
 from ..state import Window, empty_window
 from ..utils.profiling import host_read, span, traced
@@ -88,6 +90,8 @@ class ScanStats:
     host_syncs: int = 0          # device→host reads: one per frame
                                  # (do_solve) plus each solve's own
     solves: list = field(default_factory=list)  # SolveInfo per attempted solve
+    # how the motion-only solves ran: graph captures, replays, eager calls
+    pose_only: PoseOnlyGraphStats = field(default_factory=PoseOnlyGraphStats)
 
 
 def _identity(dtype, device):
@@ -425,7 +429,8 @@ def make_scan_step(rig, cfg, prior_mode: Optional[str] = None,
                                 cfg.solver.scan_pose_only_compensate_rotation),
                             lm_weight=window.lm_weight,
                             graduated_init=(
-                                cfg.solver.scan_pose_only_graduated_init))
+                                cfg.solver.scan_pose_only_graduated_init),
+                            stats=stats.pose_only)
         # plausibility bound on the refinement, on the relative pose
         # (vehicle displacement |Δp| and Δθ), and lidar scale arbitration
         po_speed = norm(pose_ops.relative(po.pose, st.cur_pose)[4:]) / dt_frame

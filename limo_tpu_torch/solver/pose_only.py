@@ -15,11 +15,24 @@ host. Jacobians of the plain reprojection and depth rows are the analytic
 forms of :mod:`limo_tpu_torch.solver.analytic`; the rotation-compensated
 rows and the speed row, which have none here, come from
 ``torch.func.jacfwd`` w.r.t. the pose tangent.
+
+On the analytic route (no rotation compensation, no speed row) a call
+launches ~2,500 small device operations and reads nothing back, so on a
+card :func:`pose_only_step` replays it as one captured CUDA graph: the
+first call with a new key (:func:`graph_key`: everything the capture bakes
+in) runs the body on a side stream and captures it; each later call copies
+its inputs into the graph's static inputs, replays it and returns clones of
+its outputs. The graph holds the body's own kernels, so its result is the
+eager result bit for bit. Every other call runs the same body eagerly
+(:func:`graphable` says where not). :class:`PoseOnlyGraphStats` counts both.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import threading
+from collections import OrderedDict
+from dataclasses import dataclass
+from typing import NamedTuple, Optional
 
 import torch
 from torch.func import jacfwd
@@ -29,7 +42,7 @@ from ..geometry import pose as pose_ops
 from ..geometry.quaternion import qnormalize, qto_matrix
 from ..robust import cauchy_weight, trim_quantile
 from ..utils.precision import full_f32
-from ..utils.profiling import traced
+from ..utils.profiling import span, traced
 from .analytic import obs_residual_jac
 
 
@@ -37,6 +50,31 @@ class PoseOnlyResult(NamedTuple):
     pose: torch.Tensor        # [7] optimized pose
     cost: torch.Tensor
     n_used: torch.Tensor      # residual groups used after trimming
+
+
+@dataclass
+class PoseOnlyGraphStats:
+    """How a caller's motion-only solves ran: graphs captured, graph
+    replays, and calls run eagerly (:func:`graphable`). A capturing call
+    returns its warm-up's eager result and counts as a capture only."""
+
+    captures: int = 0
+    replays: int = 0
+    eager: int = 0
+
+
+class _Graph(NamedTuple):
+    graph: "torch.cuda.CUDAGraph"
+    inputs: list              # static inputs, in the order of graph_key
+    outputs: PoseOnlyResult   # static outputs, overwritten by each replay
+
+
+# graphs per thread (a capture and its replays never cross threads), the
+# least recently used dropped past _MAX_GRAPHS; process-wide, so that a
+# scan step made after another (a warm-up, then a measured window) replays
+# the graph the first one captured
+_local = threading.local()
+_MAX_GRAPHS = 8
 
 
 def _residuals(pose, lm_pos, obs, rig, compensate_rotation):
@@ -71,13 +109,38 @@ def _residuals_analytic(pose, lm_pos, obs, cams):
     return r, ok, Jp
 
 
+def graph_key(tensors, cfg, max_iters, graduated_init, has_weight):
+    """What a capture of the body bakes in, for its ``tensors`` (the
+    inputs, then the rig's fields): each tensor's shape, strides, type and
+    device, the loop counts, the graduated schedule, the robust and solver
+    configurations whole (the body is given nothing else of ``cfg``) and
+    whether a landmark weight is given. Values of the tensors are not in
+    it: a replay copies them in."""
+    return (tuple((tuple(t.shape), t.stride(), t.dtype, t.device)
+                  for t in tensors),
+            cfg.robust, cfg.solver, int(max_iters), float(graduated_init),
+            bool(has_weight))
+
+
+def graphable(tensors, compensate_rotation, speed_reg) -> bool:
+    """Whether a call may replay a graph: not where it runs the
+    rotation-compensated or speed rows (``torch.func``), under a
+    ``torch.func`` transform, with tensors off the card, or inside a
+    stream capture."""
+    return (not compensate_rotation and speed_reg is None
+            and torch._C._functorch.peek_interpreter_stack() is None
+            and all(t.is_cuda for t in tensors)
+            and not torch.cuda.is_current_stream_capturing())
+
+
 @traced("limo.pose_only")
-@full_f32
 def pose_only_step(pose_prior, lm_pos, obs, obs_mask, lm_mask, rig, cfg,
                    speed_reg=None, max_iters: int = 4,
                    compensate_rotation: bool = False,
                    lm_weight=None,
-                   graduated_init: float = 1.0) -> PoseOnlyResult:
+                   graduated_init: float = 1.0,
+                   stats: Optional[PoseOnlyGraphStats] = None
+                   ) -> PoseOnlyResult:
     """Optimize one pose against fixed landmarks.
 
     lm_pos [L,3], obs [L,C,3], obs_mask [L,C], lm_mask [L] (last selection).
@@ -92,8 +155,95 @@ def pose_only_step(pose_prior, lm_pos, obs, obs_mask, lm_mask, rig, cfg,
     early, while the final iterations re-tighten to the true scale (the scan
     path passes 8.0, ``SolverConfig.scan_pose_only_graduated_init``). 1.0 =
     reference behavior.
+
+    On a card, where :func:`graphable` allows it, the call replays the
+    body (:func:`_pose_only`) as a captured CUDA graph, else it runs the
+    body eagerly; ``stats`` counts which.
     """
-    rcfg = cfg.robust
+    stats = PoseOnlyGraphStats() if stats is None else stats
+    inputs = [pose_prior, lm_pos, obs, obs_mask, lm_mask] + (
+        [] if lm_weight is None else [lm_weight])
+    tensors = inputs + list(rig)
+    eager = lambda: _pose_only(pose_prior, lm_pos, obs, obs_mask, lm_mask,
+                               rig, cfg.robust, cfg.solver, speed_reg,
+                               max_iters, compensate_rotation, lm_weight,
+                               graduated_init)
+    if not graphable(tensors, compensate_rotation, speed_reg):
+        stats.eager += 1
+        return eager()
+    graphs = _local.__dict__.setdefault("graphs", OrderedDict())
+    # a replay on another stream could overlap this stream's use of the
+    # static tensors
+    key = (torch.cuda.current_stream(pose_prior.device).cuda_stream, graph_key(
+        tensors, cfg, max_iters, graduated_init, lm_weight is not None))
+    entry = graphs.get(key)
+    if entry is None:
+        if torch._C._autograd._profiler_enabled():
+            # never capture inside a profiled window
+            stats.eager += 1
+            return eager()
+        with span("limo.pose_only_capture"):
+            out, entry = _capture(tensors, len(inputs), rig, cfg, max_iters,
+                                  graduated_init, lm_weight is not None)
+        graphs[key] = entry
+        while len(graphs) > _MAX_GRAPHS:
+            graphs.popitem(last=False)
+        stats.captures += 1
+        return out
+    graphs.move_to_end(key)
+    with torch.cuda.device(pose_prior.device):
+        for static, t in zip(entry.inputs, tensors):
+            static.copy_(t)
+        entry.graph.replay()
+    stats.replays += 1
+    # the next replay overwrites the static outputs
+    return PoseOnlyResult(*[t.clone() for t in entry.outputs])
+
+
+def _capture(tensors, n_inputs, rig, cfg, max_iters, graduated_init,
+             has_weight):
+    """(this call's result, its graph): the body run once on a side stream
+    from static copies of ``tensors`` (the warm-up a capture needs, and the
+    call's result), then captured over the same static tensors, all on
+    the tensors' card, whichever card is current."""
+    device = tensors[0].device
+    static = [t.clone() for t in tensors]
+    pose_prior, lm_pos, obs, obs_mask, lm_mask = static[:5]
+    lm_weight = static[5] if has_weight else None
+    srig = type(rig)(*static[n_inputs:])
+
+    def body():
+        return _pose_only(pose_prior, lm_pos, obs, obs_mask, lm_mask, srig,
+                          cfg.robust, cfg.solver, None, max_iters, False,
+                          lm_weight, graduated_init)
+
+    with torch.cuda.device(device):
+        current = torch.cuda.current_stream()
+        side = torch.cuda.Stream()
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            out = body()
+        current.wait_stream(side)
+        for t in out:
+            t.record_stream(current)
+        graph = torch.cuda.CUDAGraph()
+        # a stream of this card: torch.cuda.graph's default capture stream
+        # is made once, on the card current at the first capture, and
+        # kernels sent to another card's stream would leave the graph empty
+        with torch.cuda.graph(graph, stream=side,
+                              capture_error_mode="thread_local"):
+            outputs = body()
+    return out, _Graph(graph, static, outputs)
+
+
+@full_f32
+def _pose_only(pose_prior, lm_pos, obs, obs_mask, lm_mask, rig, rcfg,
+               scfg, speed_reg, max_iters, compensate_rotation, lm_weight,
+               graduated_init) -> PoseOnlyResult:
+    """The motion-only solve itself, run eagerly or captured; the
+    arguments are :func:`pose_only_step`'s, but of the configuration only
+    ``cfg.robust`` and ``cfg.solver`` (``rcfg``, ``scfg``), the two parts
+    :func:`graph_key` holds."""
     dtype = pose_prior.dtype
     device = pose_prior.device
     ginit = float(graduated_init)
@@ -172,7 +322,7 @@ def pose_only_step(pose_prior, lm_pos, obs, obs_mask, lm_mask, rig, cfg,
         return torch.clamp_min(ginit * torch.pow(0.5, it.to(dtype)), 1.0)
 
     def lm_loop(pose, lm_use, iters):
-        lam = torch.full((), cfg.solver.initial_lambda, dtype=dtype,
+        lam = torch.full((), scfg.initial_lambda, dtype=dtype,
                          device=device)
         it = torch.zeros((), dtype=torch.int32, device=device)
         done = torch.zeros((), dtype=torch.bool, device=device)
@@ -188,7 +338,7 @@ def pose_only_step(pose_prior, lm_pos, obs, obs_mask, lm_mask, rig, cfg,
             accept = torch.isfinite(new_cost) & (new_cost < cost)
             rel = (cost - new_cost) / torch.clamp_min(cost, 1e-12)
             # no convergence exit while the scale is still relaxed
-            converged = accept & (rel < cfg.solver.function_tolerance) \
+            converged = accept & (rel < scfg.function_tolerance) \
                 & (smul <= 1.0)
             live = ~done
             pose = torch.where(live & accept, cand, pose)
